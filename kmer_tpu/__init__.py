@@ -1,4 +1,4 @@
-"""kmer_tpu — a TPU-native k-mer counting engine (JAX/XLA/Pallas).
+"""kmer_tpu — a k-mer counting engine on JAX/XLA.
 
 Built from scratch against the capability surface of the reference
 `jaxonwang/k-mer-count` (see SURVEY.md), not as a port: bases are 2-bit

@@ -6,7 +6,7 @@ Subcommands:
 
   count     FASTA/FASTQ -> sorted "kmer\\tcount" TSV on stdout
   histo     k-mer multiplicity spectrum (streaming with --two-pass)
-  card      estimate DISTINCT k-mers (HyperLogLog on the MXU)
+  card      estimate DISTINCT k-mers (HyperLogLog sketch)
   parity    FASTA -> the reference's exact sorted chunk dump on stdout
   dump      saved table (.npz) -> TSV / spectrum / top-N
   query     look up counts in a saved table (.npz)
@@ -171,7 +171,7 @@ def main(argv: list[str] | None = None) -> int:
 
     pe = sub.add_parser("card", help="estimate DISTINCT k-mers (F0 "
                                      "cardinality, ntCard-style "
-                                     "HyperLogLog on the MXU) without "
+                                     "HyperLogLog) without "
                                      "building a table")
     _add_common(pe)
     pe.add_argument("-k", type=int, action="append", default=None,
@@ -243,6 +243,8 @@ def main(argv: list[str] | None = None) -> int:
     pg.add_argument("--error-rate", type=float, default=0.0)
 
     args = ap.parse_args(argv)
+    from .utils.jaxcache import enable_compilation_cache
+    enable_compilation_cache()
     if getattr(args, "threads", None):
         import os
         os.environ["KMER_TPU_PARSE_THREADS"] = str(args.threads)

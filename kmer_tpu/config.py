@@ -16,8 +16,8 @@ from dataclasses import dataclass
 class KmerConfig:
     k: int = 21
     canonical: bool = False
-    # counting mode: "auto" picks dense for k <= 8 (MXU one-hot
-    # histogram), else sort — see effective_mode.
+    # counting mode: "auto" picks dense for k <= 8 on a slow D2H link,
+    # else sort — see effective_mode.
     mode: str = "auto"                      # auto | dense | sort
     batch_reads: int = 8192                 # reads (segments) per device batch
                                             # (bigger batches amortize the
@@ -30,11 +30,10 @@ class KmerConfig:
     r_len: int = 27
     c_min: int = 80
     c_max: int = 140
-    # sort-mode grouping: keys per independent device sort slice (the
-    # sort is O(n log^2 n), so many small sorts beat one big one; 256
-    # measured optimal on v5e with the repacked 1-key comparator + the
-    # Pallas run-length scan, scripts/r2_sort_experiments.py).  Equal
-    # keys may then span groups, which the host aggregation absorbs —
+    # sort-mode grouping: keys per independent device sort slice (many
+    # small sorts are cheaper than one big one; the size is not yet
+    # tuned on the current card, ROADMAP 1.2).  Equal keys may then
+    # span groups, which the host aggregation absorbs —
     # smaller groups trade device speed against on-device dedup for
     # repetitive corpora; 0 = one global sort per batch (globally
     # sorted device output).
@@ -53,14 +52,14 @@ class KmerConfig:
     # win on repetitive corpora / slow host links at the cost of an
     # extra partition pass on device (ops/count.grouped_count_compact).
     compact: bool = False
-    # device-resident table accumulation (r5, ops/devmerge): sort-mode
+    # device-resident table accumulation (ops/devmerge): sort-mode
     # batches merge (grouped, ~one state sort per C/2 lanes) into an
     # on-device sorted unique (keys, counts) table that GROWS within
     # an HBM budget (KMER_TPU_DEVMERGE_MAX_MB), and the host reads
     # back only distinct rows (tiered u24/u32 delta wire) at drains —
     # D2H scales with DISTINCT keys once per corpus, not per batch.
     # "auto" (default) turns it on when the probed D2H link is below
-    # ~0.5 GB/s (utils.linkspeed) on TPU; "on"/"off" force.
+    # ~0.5 GB/s (utils.linkspeed); "on"/"off" force.
     # KMER_TPU_DEVMERGE=1/0 overrides either way (operational escape
     # hatch); KMER_TPU_DEVMERGE_ROWS pins a FIXED capacity.
     device_merge: str = "auto"              # auto | on | off
@@ -81,8 +80,7 @@ class KmerConfig:
     min_qual: int = 0
     # spaced seed: a 0/1 match mask (e.g. "1101011"); the key per
     # window of span len(mask) is the bases at the '1' offsets
-    # (PatternHunter-style).  Runs as extra zeroed bands of the MXU
-    # banded-matmul extraction on TPU; sort mode, contiguous reads.
+    # (PatternHunter-style).  Sort mode, contiguous reads.
     # canonical requires a palindromic mask (strand-min is otherwise
     # undefined for spaced keys).
     seed_mask: str | None = None
@@ -169,9 +167,9 @@ class KmerConfig:
 
     @property
     def effective_mode(self) -> str:
-        """auto: dense where the MXU one-hot histogram applies (k <= 8)
-        AND the D2H link is slow enough that its device-resident table
-        pays for the ~75x-per-key device cost (utils.linkspeed — probe
+        """auto: dense for k <= 8 when the D2H link is slow enough that
+        its device-resident table pays for the scatter-add's per-key
+        device cost (utils.linkspeed — probe
         or KMER_TPU_D2H_GBPS env; the probe never runs at config
         construction).  Explicit dense for k = 9..12 runs the hybrid
         path (device grouped sort-count + host np.add.at dense

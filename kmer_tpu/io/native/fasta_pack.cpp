@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ parser + 2-bit packer (host ingest layer).
 //
-// TPU-native replacement for the reference's only native layer — the Rust
+// Replacement for the reference's only native layer — the Rust
 // bio::io::fasta reader + String handling (k-mer-count/src/main.rs:44-62).
 // Parses sequence files in streaming passes and emits bases as 2-bit codes
 // (A=0,C=1,G=2,T=3, lowercase accepted) into caller-provided buffers, plus

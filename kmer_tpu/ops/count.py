@@ -17,9 +17,6 @@ outputs (drop sentinel runs) after the fact.
 
 from __future__ import annotations
 
-import os
-
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -28,32 +25,11 @@ from .extract import SENTINEL
 
 DENSE_K_MAX = 12
 
-# sort backend, override with KMER_TPU_SORT=auto|xla|pallas.
-# Measured on v5e (scripts/debug_sort_tpu.py): XLA's multi-operand sort
-# hits a fast radix path at ~0.1 ms for 1M 2-word keys — already at the
-# HBM roofline — so "auto" = lax.sort; the Pallas VMEM-resident bitonic
-# kernel (ops/pallas/sort.py) stays as an opt-in backend.
-_SORT_BACKEND = os.environ.get("KMER_TPU_SORT", "auto")
 
-
-def sort_words(words: list[jnp.ndarray],
-               backend: str | None = None) -> list[jnp.ndarray]:
+def sort_words(words: list[jnp.ndarray]) -> list[jnp.ndarray]:
     """Lexicographic sort of flattened W-word keys (duplicates kept)."""
-    flat = [w.reshape(-1) for w in words]
-    backend = backend or _SORT_BACKEND
-    if backend == "pallas":
-        from .pallas.sort import sort_words_pallas
-        # off-TPU a forced pallas backend runs interpreted (testing)
-        return sort_words_pallas(flat,
-                                 interpret=jax.default_backend() != "tpu")
-    if len(flat) == 1 and jax.default_backend() == "tpu":
-        # XLA:TPU's single-operand sort takes a ~10x slower path than
-        # its variadic sort (measured: 25 ms vs 2.7 ms per 2^20 keys);
-        # a throwaway payload operand selects the fast path.
-        dummy = jnp.zeros_like(flat[0])
-        out = lax.sort((flat[0], dummy), num_keys=1)
-        return [out[0]]
-    return list(lax.sort(tuple(flat), num_keys=len(flat)))
+    flat = tuple(w.reshape(-1) for w in words)
+    return list(lax.sort(flat, num_keys=len(flat)))
 
 
 def repack_words(words: list[jnp.ndarray], valid: jnp.ndarray, n_bases: int
@@ -67,7 +43,6 @@ def repack_words(words: list[jnp.ndarray], valid: jnp.ndarray, n_bases: int
     comparator words, with the residual riding along as payload.  Ties
     in the first W-1 words may leave equal keys non-adjacent, which the
     counting contract absorbs (partial aggregation; host from_pairs).
-    Measured on v5e: the 1-key grouped sort runs ~1.8x the 2-key one.
 
     The last word doubles as the validity channel: real lanes hold
     values < 2^s < SENTINEL, invalid lanes hold SENTINEL — so repacked
@@ -120,33 +95,11 @@ def unpack_words(rwords: list[jnp.ndarray], n_bases: int) -> list[jnp.ndarray]:
     return [jnp.where(valid, w, SENTINEL) for w in out]
 
 
-def sort_words_grouped(words: list[jnp.ndarray], groups: int
-                       ) -> list[jnp.ndarray]:
-    """Sort W-word keys within `groups` independent equal slices of the
-    flattened key stream (lax.sort over a batch dimension).
-
-    Why: the sort is O(n log^2 n), so g sorts of n/g keys beat one sort
-    of n — measured on v5e: 2^21 keys flat = 477 M keys/s, in 2^13-key
-    groups = 1.7 B keys/s.  The output is only group-locally sorted;
-    equal keys may repeat across groups, so callers must aggregate with
-    KmerTable.from_pairs (run_lengths itself stays correct: group
-    boundaries either start a new run naturally or legitimately merge
-    equal adjacent runs, and sentinel tails sort to each group's end).
-    """
-    flat = [w.reshape(-1) for w in words]
-    n = flat[0].shape[0]
-    assert n % groups == 0, (n, groups)
-    m = n // groups
-    shaped = tuple(f.reshape(groups, m) for f in flat)
-    out = lax.sort(shaped, num_keys=len(shaped), dimension=1)
-    return list(out)           # (G, m) shaped; flatten at the caller
-
-
 def run_lengths_grouped(sorted_2d: list[jnp.ndarray], *,
                         valid_word: int = 0):
     """run_lengths over (G, m) group-locally sorted words: scans run
-    along axis 1 (depth m instead of n — much better VPU shape), runs
-    never span groups.  Returns flat (G*m,) is_start / counts.
+    along axis 1 (depth m instead of n), runs never span groups.
+    Returns flat (G*m,) is_start / counts.
 
     valid_word: index of a word whose real values never reach SENTINEL
     (std layout: word 0, which holds <= 31 used bits by words_per_key's
@@ -199,10 +152,9 @@ def run_lengths(sorted_words: list[jnp.ndarray]):
 
 
 def grouped_count(words: list[jnp.ndarray], valid: jnp.ndarray,
-                  n_bases: int, group_keys: int,
-                  backend: str | None = None):
-    """The production sort-mode count step core: repacked 1-key grouped
-    sort + run-length, with sentinel padding so any group size works.
+                  n_bases: int, group_keys: int):
+    """The sort-mode count step core: repacked grouped sort +
+    run-length, with sentinel padding so any group size works.
 
     words/valid: extractor outputs (std layout, any shape).  The flat
     key stream is padded with sentinel lanes to a multiple of
@@ -210,194 +162,110 @@ def grouped_count(words: list[jnp.ndarray], valid: jnp.ndarray,
     the minimum comparator width (repack_words), and run-length
     encoded.  Output keys are converted back to std layout.
 
-    Backends (env KMER_TPU_GROUPED):
-      "hybrid"  XLA variadic sort + Pallas in-VMEM run-length scan —
-                the measured-fastest TPU combination (XLA's sort beats
-                the hand-written bitonic, but its lax.cummin scan makes
-                log(m) passes that the Pallas kernel collapses into one
-                VMEM round trip); needs m % 128 == 0.
-      "pallas"  fully fused in-VMEM bitonic sort + scan (kept for
-                comparison; measured slower than hybrid on v5e).
-      "xla"     pure lax.sort + scan (any m; the CPU/test path).
-      "dedup"   all-pairs in-segment dedup, NO sort: counts land on
-                first occurrences in extraction order (the jnp.roll
-                twin of the fused kernels' collapse; seg window via
-                KMER_TPU_DEDUP_SEG, default 8).
-      "auto"    on TPU: dedup for multi-word keys (measured 1.4x the
-                hybrid sort at k=33), hybrid for 1-word; else xla.
-
     Returns (sorted_words_flat_std, is_start, counts) of padded flat
     size; equal keys may span groups/ties — callers aggregate with
     KmerTable.from_pairs (partial-aggregation contract).
     """
-    rwords, nk = repack_words([w.reshape(-1) for w in words],
-                              valid.reshape(-1), n_bases)
-    return grouped_count_repacked(rwords, n_bases, group_keys,
-                                  backend=backend)
-
-
-def _mix_words(words: list[jnp.ndarray]) -> jnp.ndarray:
-    """32-bit multiply-xor mix of all key words (Fibonacci hashing).
-
-    Used by the hash-grouping sort path: the counting contract only
-    needs EQUAL keys adjacent within a group (partial aggregation, host
-    from_pairs) — not any particular order — so multi-word keys can be
-    grouped by a 1-word hash instead of a W-1-wide lexicographic
-    comparator.  Collisions cost nothing but a few extra output pairs:
-    distinct keys sharing a hash interleave, the full-word run-length
-    comparison still breaks their runs correctly.
-    """
-    h = jnp.zeros_like(words[0])
-    for w in words:
-        h = (h ^ w) * jnp.uint32(0x9E3779B1)
-        h = h ^ (h >> jnp.uint32(16))
-    return h
-
-
-def _sorted_grouped_runs(rwords: list[jnp.ndarray], group_keys: int,
-                         backend: str):
-    """Shared core: pad -> grouped sort -> run-length over repacked
-    words.  Returns (flat_sorted_rwords, counts) of padded flat size."""
-    flat = [w.reshape(-1) for w in rwords]
-    n = flat[0].shape[0]
-    m = max(min(group_keys, n), 1)
-    nk = max(len(flat) - 1, 1)
-    from .pallas.fused_count import BLOCK_G
-    on_tpu = jax.default_backend() == "tpu"
-    use_fused = (m >= 128 and (m & (m - 1)) == 0 and backend == "pallas")
-    use_fused_t = ((m & (m - 1)) == 0 and backend == "pallas_t")
-    # multi-word keys: all-pairs dedup beats the lex-comparator sorts
-    # (k=33 full step 0.73 vs 1.01 ms hybrid on v5e, 1.93 M keys); for
-    # 1-word keys the hybrid sort stays the measured winner
-    if backend == "auto" and on_tpu and nk > 1 and m % 8 == 0:
-        backend = "dedup"
-    use_hybrid = (m % 128 == 0 and m > 0 and
-                  (backend == "hybrid" or (backend == "auto" and on_tpu)))
-    if use_fused_t:
-        pad_unit = m * 512
-    elif use_fused or use_hybrid:
-        pad_unit = m * BLOCK_G
-    else:
-        pad_unit = m
-    pad = (-n) % pad_unit
-    if pad:
-        flat = [jnp.concatenate([w, jnp.full((pad,), SENTINEL, w.dtype)])
-                for w in flat]
-    G = (n + pad) // m
-    interp = not on_tpu
-    if use_fused_t:
-        # m on SUBLANES: a "group" is a strided column of the flat
-        # stream — an equally valid partition for partial aggregation,
-        # so no transpose is ever materialized
-        from .pallas.fused_count import fused_grouped_count_sublane
-        shaped_t = [w.reshape(m, G) for w in flat]
-        s2d, counts2d = fused_grouped_count_sublane(shaped_t,
-                                                    interpret=interp)
-        return [w.reshape(-1) for w in s2d], counts2d.reshape(-1)
-    shaped = [w.reshape(G, m) for w in flat]
-    if backend == "dedup":
-        # all-pairs in-segment dedup, no sort (the jnp.roll twin of
-        # ops/pallas/fused_count._dedup_runlen): counts land on first
-        # occurrences, keys stay in extraction order.  Collapse scope
-        # is the seg window (not m), which the partial-aggregation
-        # contract absorbs; the win over the multi-key sort grows with
-        # key width (every word rides the lex comparator there, here
-        # each word costs one compare per distance).
-        seg = int(os.environ.get("KMER_TPU_DEDUP_SEG", "8"))
-        assert m % seg == 0 and (seg & (seg - 1)) == 0, (m, seg)
-        s_idx = jnp.arange(m, dtype=jnp.int32)[None, :] & (seg - 1)
-        total = jnp.ones((G, m), jnp.int32)
-        dupc = jnp.zeros((G, m), jnp.int32)
-        for d in range(1, seg):
-            eq = s_idx < (seg - d)
-            for w in shaped:
-                eq = eq & (w == jnp.roll(w, -d, axis=1))     # x[i+d]
-            eqi = eq.astype(jnp.int32)
-            total = total + eqi
-            dupc = dupc + jnp.roll(eqi, d, axis=1)  # guard kills wraps
-        valid = shaped[-1] != SENTINEL
-        counts = jnp.where(valid & (dupc == 0), total, 0)
-        return [w.reshape(-1) for w in shaped], counts.reshape(-1)
-    if use_fused:
-        from .pallas.fused_count import fused_grouped_count
-        s2d, counts2d = fused_grouped_count(shaped, interpret=interp)
-        return [w.reshape(-1) for w in s2d], counts2d.reshape(-1)
-    if len(shaped) == 1:
-        # XLA:TPU single-operand sort takes a ~10x slower path than the
-        # variadic one; a throwaway payload operand selects the fast path
-        dummy = jnp.zeros_like(shaped[0])
-        s2d = [lax.sort((shaped[0], dummy), num_keys=1, dimension=1)[0]]
-    elif nk > 1 and os.environ.get("KMER_TPU_MULTIKEY", "lex") == "hash1":
-        # OPT-IN (measured negative): group multi-word keys by a 1-word
-        # hash — 1-wide comparator, key words ride as payload; the
-        # run-length below still compares ALL words, so collisions stay
-        # exact (see _mix_words).  On v5e the extra sort operand costs
-        # more than the narrower comparator saves: gapped W=4 step
-        # 3.65 ms/step vs 3.17 lexicographic (B=2048, m=256) — the XLA
-        # variadic sort's cost scales with operand count, not
-        # comparator width.
-        h = _mix_words(shaped)
-        s2d = list(lax.sort((h, *shaped), num_keys=1, dimension=1))[1:]
-    else:
-        s2d = list(lax.sort(tuple(shaped), num_keys=nk, dimension=1))
-    if use_hybrid:
-        from .pallas.fused_count import run_lengths_grouped_pallas
-        counts = run_lengths_grouped_pallas(s2d, interpret=interp).reshape(-1)
-    else:
-        _, counts = run_lengths_grouped(s2d, valid_word=-1)
-    return [w.reshape(-1) for w in s2d], counts
-
-
-def grouped_count_repacked(rwords: list[jnp.ndarray], n_bases: int,
-                           group_keys: int, backend: str | None = None):
-    """grouped_count core over already-repacked words (word 0..nk-1 are
-    the sort keys, the LAST word carries validity: < 2^s real, SENTINEL
-    invalid).  Entry point for the fused Pallas extractor, which emits
-    this layout directly (ops/pallas/extract.py)."""
-    backend = backend or os.environ.get("KMER_TPU_GROUPED", "auto")
-    s_flat, counts = _sorted_grouped_runs(rwords, group_keys, backend)
+    rwords, _nk = repack_words([w.reshape(-1) for w in words],
+                               valid.reshape(-1), n_bases)
+    s_flat, counts = _sorted_grouped_runs(rwords, group_keys)
     std = unpack_words(s_flat, n_bases)
     return std, counts > 0, counts
 
 
+def _sorted_grouped_runs(rwords: list[jnp.ndarray], group_keys: int):
+    """Shared core: pad -> grouped sort -> run-length over repacked
+    words.  Returns (flat_sorted_rwords, counts) of padded flat size.
+
+    Sorting independent group_keys-sized slices (lax.sort over a batch
+    dimension) instead of the whole stream leaves the output only
+    group-locally sorted; equal keys may repeat across groups, which
+    the host aggregation absorbs.  run_lengths_grouped stays correct:
+    runs never span groups, and sentinel tails sort to each group's
+    end."""
+    flat = [w.reshape(-1) for w in rwords]
+    n = flat[0].shape[0]
+    m = max(min(group_keys, n), 1)
+    nk = max(len(flat) - 1, 1)
+    pad = (-n) % m
+    if pad:
+        flat = [jnp.concatenate([w, jnp.full((pad,), SENTINEL, w.dtype)])
+                for w in flat]
+    G = (n + pad) // m
+    shaped = tuple(w.reshape(G, m) for w in flat)
+    s2d = list(lax.sort(shaped, num_keys=nk, dimension=1))
+    _, counts = run_lengths_grouped(s2d, valid_word=-1)
+    return [w.reshape(-1) for w in s2d], counts
+
+
 def grouped_count_compact(words: list[jnp.ndarray], valid: jnp.ndarray,
                           n_bases: int, group_keys: int, *,
-                          part_keys: int = 2048,
-                          backend: str | None = None):
-    """Grouped count + ON-DEVICE COMPACTION (VERDICT r1 #2): returns
-    (row_blocks, total_rows) — 128-lane rows of 32 records each
-    (word0, word1, count, 0) in repacked layout, all of this batch's
-    distinct entries in rows [0, total_rows) (plus < 32 dead count==0
-    records per coarse group, dropped by the host filter;
+                          part_keys: int = 2048):
+    """Grouped count + ON-DEVICE COMPACTION: returns (row_blocks,
+    total_rows) — 128-lane rows of packed (repacked key words..., count)
+    records, all of this batch's distinct entries in rows
+    [0, total_rows) (plus < one row of dead count==0 records per coarse
+    group, dropped by the host filter;
     pipeline.table.KmerTable.from_compact decodes).  D2H then scales
     with DISTINCT k-mers: the host fetches only the live rows, not the
     full static key stream.
 
-    Pipeline: repack -> grouped sort + run-length (the fast count
-    core) -> a part_keys-grouped single-key partition sort that moves
-    each coarse group's live entries to its front -> one sequential-DMA
-    pack (ops/pallas/compact.pack_groups) that concatenates the live
-    prefixes.  Record width adapts to the key size (4 uint32 fields for
-    W <= 3, 8 up to W = 7 — which covers the gapped 54-base chunks,
-    W = 4).
+    Pipeline: repack -> grouped sort + run-length (the count core) ->
+    compact_from_runs.  Record width adapts to the key size
+    (record_width: 4 uint32 fields for W <= 3, 8 up to W = 7 — which
+    covers the gapped 54-base chunks, W = 4).
     """
     W = words_per_key(n_bases)
     assert W <= 7, "compaction record width caps at 8 fields (W <= 7)"
-    backend = backend or os.environ.get("KMER_TPU_GROUPED", "auto")
     rwords, _nk = repack_words([w.reshape(-1) for w in words],
                                valid.reshape(-1), n_bases)
-    s_flat, counts = _sorted_grouped_runs(rwords, group_keys, backend)
+    s_flat, counts = _sorted_grouped_runs(rwords, group_keys)
     return compact_from_runs(s_flat, counts, part_keys=part_keys)
+
+
+def record_width(n_fields: int) -> int:
+    """Fields per packed compaction record: power of two >= n_fields,
+    min 4 (the count rides as the LAST live field; the rest is zero
+    padding), so every 128-lane row holds a whole number of records."""
+    assert 1 <= n_fields <= 128, n_fields
+    return max(4, 1 << (n_fields - 1).bit_length())
+
+
+def pack_groups(fields: list[jnp.ndarray], d: jnp.ndarray):
+    """Concatenate per-group live record prefixes into contiguous rows.
+
+    fields: list of (G, m) uint32 record fields (key words then the
+    count, live records first per group); d: (G,) int32 live counts.
+    Returns (out, total_rows): out (G*m/rpr + m/rpr, 128) uint32 whose
+    first total_rows rows hold all live records (plus < rpr dead
+    count==0 records per group), with rpr = 128 // record_width and
+    total_rows = sum(ceil(d/rpr)).  Output row j is a gather from the
+    group that owns it (searchsorted over the groups' row offsets)."""
+    G, m = fields[0].shape
+    rec_w = record_width(len(fields))
+    rpr = 128 // rec_w
+    assert m % rpr == 0, (m, rpr)
+    cols = list(fields) + [jnp.zeros_like(fields[0])] * (rec_w - len(fields))
+    rg = m // rpr
+    rows = jnp.stack(cols, axis=-1).reshape(G, rg, 128)
+    dr = -(-d // rpr)
+    base = (jnp.cumsum(dr) - dr).astype(jnp.int32)
+    total = dr.sum().astype(jnp.int32)
+    j = jnp.arange(G * rg + rg, dtype=jnp.int32)
+    g = jnp.clip(jnp.searchsorted(base + dr, j, side="right"), 0, G - 1)
+    r = j - base[g]
+    live = j < total
+    out = jnp.where(live[:, None], rows[g, jnp.clip(r, 0, rg - 1)], 0)
+    return out, total
 
 
 def compact_from_runs(s_flat: list[jnp.ndarray], counts: jnp.ndarray, *,
                       part_keys: int = 2048):
     """Compaction back half over an already grouped-counted repacked run
-    stream (flat sorted words + run counts, e.g. from
-    ops/pallas/fused_extract.fused_extract_count_T): part_keys-grouped
+    stream (flat sorted words + run counts): a part_keys-grouped
     single-key partition sort moves live entries to each coarse group's
-    front, then one sequential-DMA pack concatenates the prefixes.
-    Returns (row_blocks, total_rows) as grouped_count_compact."""
+    front, then pack_groups concatenates the prefixes.  Returns
+    (row_blocks, total_rows) as grouped_count_compact."""
     n = s_flat[0].shape[0]
     m2 = part_keys
     pad = (-n) % m2
@@ -415,10 +283,7 @@ def compact_from_runs(s_flat: list[jnp.ndarray], counts: jnp.ndarray, *,
     part = lax.sort(tuple(operands), num_keys=1, dimension=1)
     d = jnp.sum(live.reshape(G2, m2), axis=1, dtype=jnp.int32)
     fields = list(part[1:1 + nw]) + [part[-1]]
-    from .pallas.compact import pack_groups, pack_groups_xla
-    if jax.default_backend() == "tpu":
-        return pack_groups(fields, d)
-    return pack_groups_xla(fields, d)
+    return pack_groups(fields, d)
 
 
 def sort_count(words: list[jnp.ndarray]):
@@ -428,41 +293,24 @@ def sort_count(words: list[jnp.ndarray]):
     return s, is_start, counts
 
 
+def index_histogram(idx: jnp.ndarray, valid: jnp.ndarray, n_bins: int,
+                    hist: jnp.ndarray | None = None) -> jnp.ndarray:
+    """(n_bins,) int32 histogram of `idx` (any shape) over valid lanes,
+    accumulated into `hist` when given — one scatter-add (atomics on a
+    GPU).  Invalid lanes add 0."""
+    flat = jnp.where(valid, idx, 0).astype(jnp.int32).reshape(-1)
+    upd = valid.astype(jnp.int32).reshape(-1)
+    if hist is None:
+        hist = jnp.zeros((n_bins,), jnp.int32)
+    return hist.at[flat].add(upd, mode="drop")
+
+
 def dense_histogram(word: jnp.ndarray, valid: jnp.ndarray, k: int,
-                    hist: jnp.ndarray | None = None,
-                    backend: str | None = None) -> jnp.ndarray:
+                    hist: jnp.ndarray | None = None) -> jnp.ndarray:
     """Counts into a dense 4^k table (k <= DENSE_K_MAX).
 
     `word` is the single-word key (B, P) or flat; invalid lanes add 0.
     Pass `hist` to accumulate across batches (donate it under jit).
-
-    Backends: "mxu" (alias "pallas") = Pallas one-hot matmul histogram
-    (k <= 8, the TPU fast path — XLA scatter-add serializes); "xla" =
-    scatter-add; "auto" (default, or env KMER_TPU_DENSE) picks mxu on
-    TPU when eligible.
     """
     assert k <= DENSE_K_MAX, f"dense mode needs k <= {DENSE_K_MAX}"
-    backend = backend or os.environ.get("KMER_TPU_DENSE", "auto")
-    from .pallas.histogram import DENSE_MXU_K_MAX
-    eligible = k <= DENSE_MXU_K_MAX and word.size < (1 << 24)
-    if backend in ("mxu", "pallas") and not eligible:
-        # never silently route an explicit opt-in onto the ~100x-slower
-        # scatter path (ADVICE r1)
-        raise ValueError(
-            f"dense backend {backend!r} needs k <= {DENSE_MXU_K_MAX} and "
-            f"< 2^24 keys per call (got k={k}, {word.size} keys); use "
-            f"backend='xla' or 'auto'")
-    use_mxu = eligible and (
-        backend in ("mxu", "pallas") or
-        (backend == "auto" and jax.default_backend() == "tpu"))
-    if use_mxu:
-        from .pallas.histogram import dense_histogram_mxu
-        h = dense_histogram_mxu(word, valid, k,
-                                interpret=jax.default_backend() != "tpu")
-        return h if hist is None else hist + h
-    size = 4 ** k
-    idx = jnp.where(valid, word, 0).astype(jnp.int32).reshape(-1)
-    upd = valid.astype(jnp.int32).reshape(-1)
-    if hist is None:
-        hist = jnp.zeros((size,), jnp.int32)
-    return hist.at[idx].add(upd, mode="drop")
+    return index_histogram(word, valid, 4 ** k, hist)

@@ -2,20 +2,18 @@
 
 On a slow host link the sort pipeline's bottleneck is per-batch D2H:
 every batch reads back ~10 bytes/lane of keys+counts even though the
-corpus' distinct table is a fraction of that (the r5 e2e probe measured
-a 10 k-read corpus spending 3.4 of 3.6 s in readback at ~15 MB/s).
+corpus' distinct table is a fraction of that.
 Dense mode already solves this for k <= 12 with a device-resident 4^k
 histogram; this op is the SPARSE analog for any k: the (keys, counts)
 table stays ON DEVICE, each batch's key stream is merged into it with
-two XLA sorts + associative scans (MXU/VPU-friendly, static shapes),
+two XLA sorts + associative scans (static shapes),
 and the host reads back only the final distinct rows once — D2H scales
 with DISTINCT keys, not lanes.
 
 Merge step (all static shapes, one jit per (C, N) pair):
   concat state (C rows, sorted unique, sentinel-padded) with the
   batch's N lanes -> lexicographic sort on the W key words ->
-  run totals via cumsum/backward-cummin (no scatter: a device
-  scatter-add costs ~10 ns/lane, r4 measurement) -> compact the run
+  run totals via cumsum/backward-cummin (no scatter) -> compact the run
   starts to the front with a second sort on sentinel-masked keys.
 
 Dead lanes (padding, in-segment duplicates) carry count == 0 and are
@@ -118,10 +116,7 @@ def grow_state(state_words, state_counts, new_rows: int):
     drain-and-reset whenever the corpus' distinct keys exceed the
     initial capacity: a reset forgets the merged table, so recurring
     keys re-enter as new rows and each key is drained (transferred AND
-    host-merged) once per cycle instead of once per corpus (measured:
-    a 1 M-read genome corpus with 15.3 M distinct at 2^22 capacity
-    spent 50 s re-merging ~100 M drained pairs the grown state never
-    materializes).
+    host-merged) once per cycle instead of once per corpus.
     """
     C = state_counts.shape[0]
     if new_rows <= C:

@@ -1,6 +1,6 @@
 """2-bit DNA base encoding and multi-word k-mer key layout.
 
-Design (TPU-first, not a port):
+Design (not a port):
   * Bases are 2-bit codes from the moment they leave the parser:
     A=0, C=1, G=2, T=3.  This matches ASCII lexicographic order
     (A<C<G<T), so integer order on packed keys == byte order on the
@@ -9,10 +9,10 @@ Design (TPU-first, not a port):
   * A k-mer key is a fixed tuple of W uint32 "words", most-significant
     word first, holding the right-aligned big integer
         value = sum_j code[j] * 4**(k-1-j)
-    (first base most significant).  uint32 words — not uint64 — because
-    TPUs have no native 64-bit integer datapath; XLA would emulate
-    int64 with int32 pairs anyway, so we stay in the hardware's lane
-    width explicitly.
+    (first base most significant).  uint32 words — not uint64 —
+    because JAX runs with 64-bit types off by default and accelerator
+    integer datapaths are 32 bits wide, so the key layout stays in the
+    lane width explicitly.
   * One extra bit above the 2k value bits is reserved so the all-ones
     tuple is a sentinel strictly greater than every valid key:
         W = ceil((2k + 1) / 32)

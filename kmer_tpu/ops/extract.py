@@ -1,11 +1,12 @@
-"""Vectorized rolling-window k-mer extraction (jnp, TPU-first).
+"""Vectorized rolling-window k-mer extraction (jnp).
 
 Replaces the reference's per-window string slicing + allocation hot loop
 (k-mer-count/src/main.rs:63-81: 3.55M iterations, two UTF-8 checks and a
 heap alloc each) with a static-shape slice-sum: the key contribution of
 base offset j within the window is a single shifted slice of the code
-matrix, so a k-mer key is built from k fused shift-or ops over (B, P)
-lanes — no gather, no per-window work, fully on the VPU.
+matrix, so a k-mer key is built from k shift-or ops over (B, P) lanes
+that XLA fuses into one elementwise pass — no gather, no per-window
+work.
 
 All shapes are static (XLA requirement): a read batch is a (B, L) uint8
 code matrix plus a length vector; lanes whose window overruns the read
@@ -195,7 +196,7 @@ def rc_kmer_lanes(codes: jnp.ndarray, lengths: jnp.ndarray, k: int,
 # The reference emits, for every read, every chunk size c in [c_min, c_max]
 # and every window offset o with o + c <= len, the 54-mer
 #     seq[o : o+27] ++ seq[o+c-27 : o+c]
-# (main.rs:63-79 / test.py:22-38).  TPU-first formulation: the L part is
+# (main.rs:63-79 / test.py:22-38).  Formulation: the L part is
 # the 27-mer key at position o and the R part is the 27-mer key at
 # position o+c-27, so we compute ALL 27-mer keys once (one slice-sum) and
 # the gapped key is two gathers + a word-level shift-or combine — the
@@ -280,8 +281,7 @@ def gapped_lanes(codes: jnp.ndarray, lengths: jnp.ndarray,
 
     lens32 = lengths.astype(jnp.int32)[:, None]
     lims32 = limits.astype(jnp.int32)[:, None] if limits is not None else None
-    # No gather anywhere (a per-lane gather serializes on TPU — measured
-    # 370 ms/step at 12 M lanes vs ~4 ms for the slice formulation):
+    # No gather anywhere — every window is a static slice:
     #   L window at (c, o) is index o — independent of c: a slice;
     #   R window at (c, o) is index o + (c - r_len) — for each of the C
     #   static chunk sizes, a contiguous static slice of the r-table of
@@ -312,173 +312,3 @@ def gapped_lanes(codes: jnp.ndarray, lengths: jnp.ndarray,
     words = _combine_lr(l_g, r_g, l_len, r_len)
     words = _apply_sentinel(words, valid)
     return words, valid
-
-
-def kmer_lanes_repacked_T(codes_t: jnp.ndarray, lengths: jnp.ndarray, k: int,
-                          *, limits: jnp.ndarray | None = None,
-                          canonical: bool = False,
-                          mask_ambiguous: bool = False):
-    """Transposed extraction for the sublane-axis fast path: (L, B)
-    codes -> repacked sort-layout key words of shape (P, B).
-
-    Why transposed: the slice-sum's 2k shifted slices run along the
-    SUBLANE axis here, where shifts are vreg-index moves instead of
-    lane rotations (the same insight that made the sublane bitonic
-    kernel win, ops/pallas/fused_count.fused_grouped_count_sublane).
-    The flat key stream's order differs from the (B, P) layout — which
-    the partial-aggregation counting contract does not care about.
-
-    Supports W <= 2 key words with a residual (k <= 15 or 17 <= k <= 31);
-    callers fall back to the untransposed path otherwise.  Returns
-    (rwords, valid) with rwords in the repacked layout
-    (ops/count.repack_words): sort word(s) first, the LAST word holding
-    the validity channel (SENTINEL on invalid lanes).
-    """
-    from .canonical import lex_min, revcomp_words
-    L, B = codes_t.shape
-    P = L - k + 1
-    assert P >= 1
-    W = words_per_key(k)
-    assert W <= 2 and 2 * k != 32, (k, "use the untransposed path")
-    c32 = codes_t.astype(jnp.uint32)
-    hi = jnp.zeros((P, B), jnp.uint32)
-    lo = jnp.zeros((P, B), jnp.uint32)
-    amb = jnp.zeros((P, B), bool) if mask_ambiguous else None
-    for j in range(k):
-        sl = lax.dynamic_slice_in_dim(c32, j, P, axis=0)
-        if mask_ambiguous:
-            amb = amb | (sl >= 4)
-            sl = sl & jnp.uint32(3)
-        bitpos = 2 * (k - 1 - j)
-        if bitpos >= 32:
-            hi = hi | (sl << jnp.uint32(bitpos - 32))
-        else:
-            lo = lo | (sl << jnp.uint32(bitpos))
-    words = [hi, lo] if W == 2 else [lo]
-    if canonical:
-        words = lex_min(words, revcomp_words(words, k))
-    pos = lax.broadcasted_iota(jnp.int32, (P, B), 0)
-    valid = pos <= (lengths.astype(jnp.int32)[None, :] - k)
-    if limits is not None:
-        valid = valid & (pos < limits.astype(jnp.int32)[None, :])
-    if mask_ambiguous:
-        valid = valid & ~amb
-    if W == 1:
-        return [jnp.where(valid, words[0], SENTINEL)], valid
-    low = 2 * k - 32
-    top = (words[0] << jnp.uint32(32 - low)) | (words[1] >> jnp.uint32(low))
-    bot = words[1] & jnp.uint32((1 << low) - 1)
-    return [jnp.where(valid, top, SENTINEL),
-            jnp.where(valid, bot, SENTINEL)], valid
-
-
-def _decomp(n: int) -> list[int]:
-    """Power-of-two decomposition of n, MSB first (21 -> [16, 4, 1])."""
-    return [1 << b for b in range(n.bit_length() - 1, -1, -1)
-            if n & (1 << b)]
-
-
-def kmer_lanes_repacked_T_doubling(codes_t: jnp.ndarray,
-                                   lengths: jnp.ndarray, k: int,
-                                   *, limits: jnp.ndarray | None = None,
-                                   canonical: bool = False,
-                                   mask_ambiguous: bool = False):
-    """kmer_lanes_repacked_T via LOG-DOUBLING: O(log k) shift-or steps
-    instead of O(k) — s_{2w}[i] = s_w[i] << 2w | s_w[i+w] builds encodings
-    of power-of-two widths, and a key is the fold of its width
-    decomposition.  The reverse complement comes from the SAME chain
-    folded in reverse segment order on rc codes (3 - c), replacing the
-    per-word bit-butterfly.
-
-    Repacked-layout shortcut for 17 <= k <= 31: the top sort word is
-    exactly the 16-base head encoding s16[i] (32 bits), the residual is
-    the (k-16)-base tail — no repack shifts at all on the forward path.
-
-    Same contract as kmer_lanes_repacked_T (W <= 2, 2k != 32).
-
-    MEASURED NEGATIVE on v5e (2026-08-17, B=32768 L=150 k=21 canonical):
-    0.426 ms vs 0.307 ms for the slice-sum kmer_lanes_repacked_T, and
-    the full count step regresses 0.597 -> 0.690 ms.  XLA fuses the
-    O(k) slice-sum chain into one pass over the codes; the doubling
-    levels materialize O(log k) full-size u32 intermediates instead.
-    Kept as an opt-in differential oracle for the slice-sum path.
-    """
-    L, B = codes_t.shape
-    P = L - k + 1
-    assert P >= 1
-    W = words_per_key(k)
-    assert W <= 2 and 2 * k != 32, (k, "use the untransposed path")
-    c = codes_t.astype(jnp.uint32)
-    amb1 = (c >= 4) if mask_ambiguous else None
-    if mask_ambiguous:
-        c = c & jnp.uint32(3)
-
-    head = 16 if k >= 17 else 0
-    tail = k - head
-    widths = ([16] if head else []) + _decomp(tail)   # tail >= 1 always
-    maxw = max(widths)
-    f = {1: c}
-    r = {1: jnp.uint32(3) - c} if canonical else None
-    a = {1: amb1} if mask_ambiguous else None
-    w = 1
-    while w < maxw:
-        n2 = L - 2 * w + 1           # valid length of the doubled array
-        sh = jnp.uint32(2 * w)
-        f[2 * w] = (f[w][:n2] << sh) | f[w][w:w + n2]
-        if canonical:
-            r[2 * w] = (r[w][w:w + n2] << sh) | r[w][:n2]
-        if mask_ambiguous:
-            a[2 * w] = a[w][:n2] | a[w][w:w + n2]
-        w *= 2
-
-    def fold_f(ws, off):
-        acc = None
-        for wd in ws:                # MSB first: shift acc left, append
-            part = f[wd][off:off + P]
-            acc = part if acc is None else (acc << jnp.uint32(2 * wd)) | part
-            off += wd
-        return acc
-
-    def fold_r(ws, off):
-        acc, cum = None, 0
-        for wd in ws:                # rc(S1++..++Sm) = rc(Sm)++..++rc(S1)
-            part = r[wd][off:off + P]
-            acc = part if acc is None else (part << jnp.uint32(2 * cum)) | acc
-            cum += wd
-            off += wd
-        return acc
-
-    pos = lax.broadcasted_iota(jnp.int32, (P, B), 0)
-    valid = pos <= (lengths.astype(jnp.int32)[None, :] - k)
-    if limits is not None:
-        valid = valid & (pos < limits.astype(jnp.int32)[None, :])
-    if mask_ambiguous:
-        acc = None
-        off = 0
-        for wd in widths:
-            part = a[wd][off:off + P]
-            acc = part if acc is None else acc | part
-            off += wd
-        valid = valid & ~acc
-
-    if W == 1:
-        fw = fold_f(_decomp(k), 0)
-        if canonical:
-            rw = fold_r(_decomp(k), 0)
-            fw = jnp.minimum(fw, rw)
-        return [jnp.where(valid, fw, SENTINEL)], valid
-
-    rr = 2 * tail                    # residual bits (2k - 32)
-    f_top = f[16][:P]
-    f_res = fold_f(_decomp(tail), 16)
-    if canonical:
-        rcA = r[16][:P]              # rc of the 16-base head
-        rcB = fold_r(_decomp(tail), 16)   # rc of the tail
-        # rc key = rcB << 32 | rcA  (2k bits); repacked split at bit rr
-        rc_top = (rcB << jnp.uint32(32 - rr)) | (rcA >> jnp.uint32(rr))
-        rc_res = rcA & jnp.uint32((1 << rr) - 1)
-        take = (rc_top < f_top) | ((rc_top == f_top) & (rc_res < f_res))
-        f_top = jnp.where(take, rc_top, f_top)
-        f_res = jnp.where(take, rc_res, f_res)
-    return [jnp.where(valid, f_top, SENTINEL),
-            jnp.where(valid, f_res, SENTINEL)], valid

@@ -1,18 +1,16 @@
 """Streaming distinct-k-mer estimation (F0 cardinality) — the
-ntCard/HyperLogLog capability, formulated for the TPU.
+ntCard/HyperLogLog capability.
 
 A HyperLogLog register file is per-bucket MAX of rho (the position of
-the first set bit of the hashed key's tail).  TPUs have no fast
-scatter-max — but presence is enough: registers derive from the SET of
-occupied (bucket, rho) classes, and a class histogram is exactly the
-one-hot outer-product matmul the dense counting mode already runs on
-the MXU (ops/pallas/histogram.index_histogram_mxu).  So the device
-step is: extract keys (the existing slice-sum/canonical path), mix
-them to 32-bit hashes on the VPU, form class = bucket * 32 + min(rho,
-31), and accumulate one (2^(b+5),) histogram IN DEVICE MEMORY across
-all batches — the host fetches ~2^(b+5) * 4 bytes once per corpus
-(128 KB at b=10) instead of any per-batch key stream, and peak host
-memory is O(2^b) regardless of corpus size.
+the first set bit of the hashed key's tail).  Presence is enough:
+registers derive from the SET of occupied (bucket, rho) classes, so
+the device step is: extract keys (the existing slice-sum/canonical
+path), mix them to 32-bit hashes, form class = bucket * 32 + min(rho,
+31), and accumulate one (2^(b+5),) class histogram (a scatter-add,
+ops/count.index_histogram) IN DEVICE MEMORY across all batches — the
+host fetches ~2^(b+5) * 4 bytes once per corpus (128 KB at b=10)
+instead of any per-batch key stream, and peak host memory is O(2^b)
+regardless of corpus size.
 
 The reference has no estimation capability at all (its only output is
 the sorted dump, main.rs:87-90); this is a capability extension in the
@@ -112,8 +110,8 @@ def hll_step(codes, lengths, limits, hist, *, k: int, canonical: bool,
         from .encode import unpack_codes_u32
         codes = unpack_codes_u32(codes, packed_width)
     from .canonical import canonical_kmer_lanes
+    from .count import index_histogram
     from .extract import kmer_lanes, mask_from_positions, spaced_lanes
-    from .pallas.histogram import index_histogram_mxu
     if positions is not None:
         words, valid = spaced_lanes(codes, lengths,
                                     mask_from_positions(positions),
@@ -127,8 +125,7 @@ def hll_step(codes, lengths, limits, hist, *, k: int, canonical: bool,
                                   mask_ambiguous=mask_ambiguous)
     cls, v = hll_classes([w.reshape(-1) for w in words],
                          valid.reshape(-1), b)
-    hb = index_histogram_mxu(cls, v, b + 5,
-                             interpret=jax.default_backend() != "tpu")
+    hb = index_histogram(cls, v, 1 << (b + 5))
     # saturate far below int32 wrap (a (bucket, rho) cell would wrap —
     # and read as UNOCCUPIED — once its windows approach 2^31 in a long
     # corpus): occupancy, all the estimator needs, only requires > 0,

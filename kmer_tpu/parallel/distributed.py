@@ -160,119 +160,37 @@ def count_step_distributed(codes, lengths, limits, *, k: int, canonical: bool,
     return s2, is_start, counts, overflow
 
 
-def pairs_eligible(cfg) -> bool:
+def pairs_eligible() -> bool:
     """Driver policy (multihost + streaming): route through the
-    fused-local pairs step for this config?  One definition so the
-    eligibility can never drift between drivers.
-    KMER_TPU_MULTIHOST_STEP=legacy restores the sorted-stream merge.
-    The VMEM fits-guard is enforced inside the step body (it needs the
-    halo-extended width); an unfit mxu request downgrades there."""
+    local-count pairs step?  One definition so the policy can never
+    drift between drivers.  Every key kind (contiguous, spaced, gapped,
+    any width) has a pairs body, so this is the default;
+    KMER_TPU_MULTIHOST_STEP=legacy restores the sorted-stream merge
+    (which has no spaced-seed form)."""
     import os
-    if os.environ.get("KMER_TPU_MULTIHOST_STEP", "pairs") == "legacy":
-        return False
-    if getattr(cfg, "seed_mask", None) is not None:
-        return True      # the pairs step handles spaced seeds (fused
-        # mxu when it fits, XLA spaced slice-sum otherwise)
-    if cfg.gapped:
-        nb = cfg.l_len + cfg.r_len
-        return (max(cfg.l_len, cfg.r_len) <= 31 and (2 * nb) % 32 != 0
-                and cfg.max_read_len >= cfg.c_min)
-    from ..ops.pallas.fused_extract import MXU_BACKENDS
-    mxu = os.environ.get("KMER_TPU_FUSED_EXTRACT", "auto") in (
-        ("auto",) + MXU_BACKENDS)
-    return ((words_per_key(cfg.k) <= 2 and 2 * cfg.k != 32)
-            or (mxu and cfg.k <= 63))
+    return os.environ.get("KMER_TPU_MULTIHOST_STEP", "pairs") != "legacy"
 
 
-def count_step_distributed_pairs(codes, lengths, limits, *, k: int,
-                                 canonical: bool, capacity: int,
-                                 axis_names=(DATA_AXIS, SEQ_AXIS),
-                                 seq_axis: str | None = SEQ_AXIS,
-                                 mask_ambiguous: bool = False,
-                                 positions: tuple | None = None):
-    """shard_map body, FUSED-LOCAL variant: local shapes in, routed
-    (std_words..., counts, overflow) PAIRS out.
+# keys per independent sort slice of the pairs steps' local count (the
+# single-device default, config.KmerConfig.sort_group_keys)
+LOCAL_GROUP_KEYS = 256
 
-    The sorted-stream step (count_step_distributed) pays two full flat
-    sorts per batch because its routing and its run-length counting
-    both need sorted order.  Counting TABLES need neither — only
-    deterministic aggregation — so this step runs the production fused
-    single-kernel count locally (extraction + canonical + in-segment
-    collapse, ~10-20x cheaper than a flat sort), routes (key, count)
-    pairs with ONE single-word dest sort, and lets the host's
-    order-independent integer aggregation (KmerTable.from_pairs) merge
-    per owner.  Tables stay bit-identical across mesh shapes because
-    integer aggregation is order-independent; the globally-sorted
-    stream contract (parity mode) stays on the sorted-stream step.
 
-    Output lanes with SENTINEL key words are dead (padding); counts
-    ride as a uint32 word.
-    """
-    import jax as _jax
+def _route_local_pairs(words, valid, n_bases: int, axis_names, n_dev: int,
+                       capacity: int):
+    """Local grouped count of one device's keys, then (key, count) pairs
+    to their owners.  Returns (recv_std_words, recv_counts, overflow).
 
-    from ..ops.pallas.fused_extract import fused_extract_count_T
-    n_dev = 1
-    for a in axis_names:
-        n_dev *= lax.axis_size(a)
-    B, L_loc = codes.shape
-    span = (positions[-1] + 1) if positions else k   # spaced seeds
-    if seq_axis is not None and lax.axis_size(seq_axis) > 1:
-        # halo so every window is extracted exactly once; ownership and
-        # in-read validity become per-shard effective lengths/limits
-        # (the fused kernel's validity test is pos <= len-span & pos < lim)
-        ext = halo_extend(codes, seq_axis, span - 1)
-        base = lax.axis_index(seq_axis) * L_loc
-        len_eff = jnp.clip(lengths.astype(jnp.int32) - base, 0,
-                           ext.shape[1])
-        lim_eff = jnp.clip(limits.astype(jnp.int32) - base, 0, L_loc)
-        codes_l, lengths_l, limits_l = ext, len_eff, lim_eff
-    else:
-        codes_l, lengths_l, limits_l = codes, lengths, limits
-    # extractor resolution mirrors pipeline/count.py, incl. the VMEM
-    # fits-guard on the HALO-EXTENDED width: an unfit mxu request
-    # downgrades to doubling (W <= 2) or, for wide keys, to plain XLA
-    # extraction with per-lane count 1 (pair routing doesn't care
-    # where the pairs come from — aggregation absorbs uncollapsed
-    # duplicates)
-    from ..ops.pallas.fused_extract import mxu_fits, select_fused_extract
-    if positions is not None:
-        fused_extract = ("mxu" if mxu_fits(k, codes_l.shape[1], canonical,
-                                           mask_ambiguous, span=span)
-                         else None)
-    else:
-        fused_extract = select_fused_extract(k, codes_l.shape[1],
-                                             canonical, mask_ambiguous)
-    if fused_extract is not None:
-        rflat, counts = fused_extract_count_T(
-            codes_l.T, lengths_l, limits_l, k, canonical=canonical,
-            mask_ambiguous=mask_ambiguous, seg=2, block_lanes=512,
-            algo="dedup", extract=fused_extract, positions=positions,
-            interpret=_jax.default_backend() != "tpu")
-        std = count_ops.unpack_words(rflat, k)
-        cnt = counts.astype(jnp.uint32)
-    elif positions is not None:
-        from ..ops.extract import mask_from_positions, spaced_lanes
-        words, valid = spaced_lanes(codes_l, lengths_l,
-                                    mask_from_positions(positions),
-                                    limits=limits_l,
-                                    mask_ambiguous=mask_ambiguous,
-                                    canonical=canonical)
-        std = [w.reshape(-1) for w in words]
-        cnt = valid.reshape(-1).astype(jnp.uint32)
-    else:
-        if canonical:
-            words, valid = canonical_kmer_lanes(
-                codes_l, lengths_l, k, limits=limits_l,
-                mask_ambiguous=mask_ambiguous)
-        else:
-            words, valid = kmer_lanes(codes_l, lengths_l, k,
-                                      limits=limits_l,
-                                      mask_ambiguous=mask_ambiguous)
-        std = [w.reshape(-1) for w in words]
-        cnt = valid.reshape(-1).astype(jnp.uint32)
-    dest = _route_dest(std[0], std[1] if len(std) > 1 else None, k, n_dev)
-    dead = (std[0] == SENTINEL) | (cnt == 0)
-    dest = jnp.where(dead, n_dev, dest)
+    The grouped count collapses duplicates within each sort slice, so
+    the routed pair volume is at most the lane count and shrinks with
+    the corpus's repetition.  Runs that are not run heads (count 0) and
+    sentinel lanes are routed nowhere."""
+    std, _is_start, counts = count_ops.grouped_count(words, valid, n_bases,
+                                                     LOCAL_GROUP_KEYS)
+    cnt = counts.astype(jnp.uint32)
+    dest = _route_dest(std[0], std[1] if len(std) > 1 else None, n_bases,
+                       n_dev)
+    dest = jnp.where((std[0] == SENTINEL) | (cnt == 0), n_dev, dest)
     # single-word partition sort; keys+counts ride as payload
     s = lax.sort((dest, *std, cnt), num_keys=1)
     recv, overflow = _partition_and_route(list(s[1:]), s[0], axis_names,
@@ -281,18 +199,74 @@ def count_step_distributed_pairs(codes, lengths, limits, *, k: int,
     return recv[:-1], recv[-1], overflow
 
 
+def count_step_distributed_pairs(codes, lengths, limits, *, k: int,
+                                 canonical: bool, capacity: int,
+                                 axis_names=(DATA_AXIS, SEQ_AXIS),
+                                 seq_axis: str | None = SEQ_AXIS,
+                                 mask_ambiguous: bool = False,
+                                 positions: tuple | None = None):
+    """shard_map body, LOCAL-COUNT variant: local shapes in, routed
+    (std_words..., counts, overflow) PAIRS out.
+
+    The sorted-stream step (count_step_distributed) pays two full flat
+    sorts per batch because its routing and its run-length counting
+    both need sorted order.  Counting TABLES need neither — only
+    deterministic aggregation — so this step runs the single-device
+    grouped count locally (extraction + canonical + grouped sort +
+    run-length), routes (key, count) pairs with ONE single-word dest
+    sort, and lets the host's order-independent integer aggregation
+    (KmerTable.from_pairs) merge per owner.  Tables stay bit-identical
+    across mesh shapes because integer aggregation is
+    order-independent; the globally-sorted stream contract (parity
+    mode) stays on the sorted-stream step.
+
+    Output lanes with SENTINEL key words are dead (padding); counts
+    ride as a uint32 word.
+    """
+    n_dev = 1
+    for a in axis_names:
+        n_dev *= lax.axis_size(a)
+    B, L_loc = codes.shape
+    span = (positions[-1] + 1) if positions else k   # spaced seeds
+    if seq_axis is not None and lax.axis_size(seq_axis) > 1:
+        # halo so every window is extracted exactly once; ownership and
+        # in-read validity become per-shard effective lengths/limits
+        # (the extractors' validity test is pos <= len-span & pos < lim)
+        ext = halo_extend(codes, seq_axis, span - 1)
+        base = lax.axis_index(seq_axis) * L_loc
+        len_eff = jnp.clip(lengths.astype(jnp.int32) - base, 0,
+                           ext.shape[1])
+        lim_eff = jnp.clip(limits.astype(jnp.int32) - base, 0, L_loc)
+        codes_l, lengths_l, limits_l = ext, len_eff, lim_eff
+    else:
+        codes_l, lengths_l, limits_l = codes, lengths, limits
+    if positions is not None:
+        from ..ops.extract import mask_from_positions, spaced_lanes
+        words, valid = spaced_lanes(codes_l, lengths_l,
+                                    mask_from_positions(positions),
+                                    limits=limits_l,
+                                    mask_ambiguous=mask_ambiguous,
+                                    canonical=canonical)
+    elif canonical:
+        words, valid = canonical_kmer_lanes(
+            codes_l, lengths_l, k, limits=limits_l,
+            mask_ambiguous=mask_ambiguous)
+    else:
+        words, valid = kmer_lanes(codes_l, lengths_l, k, limits=limits_l,
+                                  mask_ambiguous=mask_ambiguous)
+    return _route_local_pairs(words, valid, k, axis_names, n_dev, capacity)
+
+
 def make_distributed_count_pairs(mesh, *, k: int, canonical: bool = False,
                                  capacity: int | None = None,
                                  use_seq: bool | None = None,
                                  mask_ambiguous: bool = False,
                                  seed_mask: str | None = None):
-    """jit-compiled fused-local distributed count over `mesh`.
+    """jit-compiled local-count distributed count over `mesh`.
 
     Returns fn(codes, lengths, limits) -> (std_words, counts, overflow);
     aggregate host-side with KmerTable.from_routed_pairs.  Works for
-    ANY k: the body runs the fused kernel when eligible (W <= 2, or
-    any k <= 63 under a FITTING KMER_TPU_FUSED_EXTRACT=mxu) and falls
-    back to XLA extraction with per-lane count 1 otherwise."""
+    any k and for spaced seeds (seed_mask)."""
     n_data = mesh.shape[DATA_AXIS]
     n_seq = mesh.shape.get(SEQ_AXIS, 1)
     n_dev = n_data * n_seq
@@ -306,10 +280,7 @@ def make_distributed_count_pairs(mesh, *, k: int, canonical: bool = False,
     if seed_mask is not None:
         from ..ops.extract import parse_seed_mask, seed_mask_palindromic
         if canonical and not seed_mask_palindromic(seed_mask):
-            # the KmerConfig guard is bypassed for direct API users;
-            # without this the MXU path would silently canonicalize the
-            # EXTRACTED key (not true strand-min spaced semantics) while
-            # the XLA fallback raises — same inputs, different behavior
+            # the KmerConfig guard is bypassed for direct API users
             raise ValueError("canonical spaced seeds need a palindromic "
                              f"mask, got {seed_mask!r}")
         positions = parse_seed_mask(seed_mask)
@@ -456,19 +427,14 @@ def make_distributed_gapped_pairs(mesh, *, l_len: int = 27, r_len: int = 27,
                                   capacity: int | None = None,
                                   use_seq: bool | None = None,
                                   mask_ambiguous: bool = False):
-    """Fused-local distributed GAPPED count: the single-kernel gapped
-    step (tables + per-c combine + in-segment dedup) runs locally, then
-    (key, count) pairs route to owners — the gapped twin of
-    make_distributed_count_pairs, replacing two 4-word flat sorts with
-    one single-word dest sort.  Requires the fused gapped kernel's
-    eligibility (l/r <= 31, a residual word, reads >= c_min wide);
-    callers fall back to make_distributed_gapped otherwise.
-    Returns fn -> (std_words, counts, overflow)."""
-    from ..ops.pallas.fused_gapped import fused_gapped_count_T
+    """Local-count distributed GAPPED count: gapped extraction + the
+    grouped count run locally, then (key, count) pairs route to owners
+    — the gapped twin of make_distributed_count_pairs, replacing two
+    4-word flat sorts with one grouped sort and one single-word dest
+    sort.  Returns fn -> (std_words, counts, overflow)."""
+    from ..ops.extract import gapped_lanes
 
     n_bases = l_len + r_len
-    assert max(l_len, r_len) <= 31 and (2 * n_bases) % 32 != 0, (
-        l_len, r_len, "use make_distributed_gapped")
     n_data = mesh.shape[DATA_AXIS]
     n_seq = mesh.shape.get(SEQ_AXIS, 1)
     n_dev = n_data * n_seq
@@ -480,67 +446,27 @@ def make_distributed_gapped_pairs(mesh, *, l_len: int = 27, r_len: int = 27,
             f"with n_seq=1 instead")
     axis_names = (DATA_AXIS, SEQ_AXIS)
 
-    def _validate_width(L: int) -> None:
-        """Hardware guard: the fused gapped kernel's scoped VMEM scales
-        with the PER-SHARD row width (L/n_seq + c_max-1 halo columns);
-        too-wide shards fail in Mosaic with an opaque OOM, so raise a
-        config error with the fix instead.  (Single-device drivers
-        re-tile via pipeline.count.gapped_device_len; the mesh width is
-        tied to the seq sharding, so here the user must lower
-        max_read_len or raise the seq axis.)"""
-        import jax as _jax
-        if _jax.default_backend() != "tpu":
-            return
-        from ..ops.pallas.fused_gapped import (_env_kernel_params,
-                                               fused_gapped_fits,
-                                               max_fused_read_len)
-        seg, bl, cnt = _env_kernel_params()
-        kern_L = L // n_seq + (c_max - 1 if (use_seq and n_seq > 1) else 0)
-        if not fused_gapped_fits(kern_L, l_len, r_len, c_min, c_max,
-                                 block_lanes=bl, seg=seg, cnt_bytes=cnt):
-            fit = max_fused_read_len(l_len, r_len, c_min, c_max,
-                                     block_lanes=bl, seg=seg,
-                                     cnt_bytes=cnt)
-            max_l = (fit - (c_max - 1)) * n_seq if n_seq > 1 else fit
-            raise ValueError(
-                f"gapped mesh step: per-shard row width {kern_L} "
-                f"exceeds the fused kernel's VMEM fit ({fit}); lower "
-                f"max_read_len to <= {max(max_l, 0)} for this mesh "
-                f"(or raise the seq axis)")
-
     def body(codes, lengths, limits):
-        import jax as _jax
         B, L_loc = codes.shape
         if use_seq and n_seq > 1:
             ext = halo_extend(codes, SEQ_AXIS, c_max - 1)
             off = (lax.axis_index(SEQ_AXIS) * L_loc).astype(jnp.int32)
-            # the kernel's validity is (o + c <= len) & (o < lim) on
-            # LOCAL offsets — shifting len/lim makes it the global
-            # condition with start ownership capped at L_loc
+            # shifted lengths/limits turn gapped_lanes' local validity
+            # (o + c <= len_shifted) into the global condition; start
+            # ownership additionally caps o < L_loc
             len_l = lengths.astype(jnp.int32) - off
             lim_l = jnp.minimum(limits.astype(jnp.int32) - off, L_loc)
             codes_l = ext
         else:
-            codes_l = codes
-            len_l = lengths
-            lim_l = limits
-        rflat, counts = fused_gapped_count_T(
-            codes_l.T, len_l, lim_l, l_len=l_len, r_len=r_len,
-            c_min=c_min, c_max=c_max, mask_ambiguous=mask_ambiguous,
-            interpret=_jax.default_backend() != "tpu")
-        std = count_ops.unpack_words(rflat, n_bases)
-        cnt = counts.astype(jnp.uint32)
-        dest = _route_dest(std[0], std[1] if len(std) > 1 else None,
-                           n_bases, n_dev)
-        dest = jnp.where((std[0] == SENTINEL) | (cnt == 0), n_dev, dest)
-        s = lax.sort((dest, *std, cnt), num_keys=1)
+            codes_l, len_l, lim_l = codes, lengths, limits
+        words, valid = gapped_lanes(codes_l, len_l, l_len, r_len,
+                                    c_min, c_max, limits=lim_l,
+                                    mask_ambiguous=mask_ambiguous)
         cap = capacity
         if cap is None:
-            cap = route_capacity(cnt.size, n_dev)
-        recv, overflow = _partition_and_route(list(s[1:]), s[0],
-                                              axis_names, n_dev, cap)
-        overflow = lax.psum(overflow.astype(jnp.int32), axis_names) > 0
-        return recv[:-1], recv[-1], overflow
+            cap = route_capacity(words[0].size, n_dev)
+        return _route_local_pairs(words, valid, n_bases, axis_names, n_dev,
+                                  cap)
 
     shard = jax.shard_map(
         body, mesh=mesh,
@@ -549,13 +475,7 @@ def make_distributed_gapped_pairs(mesh, *, l_len: int = 27, r_len: int = 27,
         out_specs=([P((DATA_AXIS, SEQ_AXIS))] * words_per_key(n_bases),
                    P((DATA_AXIS, SEQ_AXIS)), P()),
         check_vma=False)
-    jitted = jax.jit(shard)
-
-    def fn(codes, lengths, limits):
-        _validate_width(codes.shape[1])
-        return jitted(codes, lengths, limits)
-
-    return fn
+    return jax.jit(shard)
 
 
 # ---------------------------------------------------------------------------

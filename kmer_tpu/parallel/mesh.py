@@ -4,7 +4,9 @@ The reference has zero parallelism (single thread, single process —
 SURVEY.md §2 parallelism inventory); the multi-chip story here is pure
 jax.sharding: a Mesh with a "data" axis (reads sharded) and an optional
 "seq" axis (long reads split across chips with halo exchange), with the
-count-table merge riding all_to_all/psum over ICI.
+count-table merge riding all_to_all/psum over the device interconnect.
+Devices are taken in plain jax.devices() order: on a host whose cards
+are joined all to all (NVLink), every placement costs the same.
 """
 
 from __future__ import annotations

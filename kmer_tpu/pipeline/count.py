@@ -23,6 +23,22 @@ from ..utils import stagetime
 from .table import KmerTable
 
 
+def _extract(codes, lengths, limits, k, canonical, mask_ambiguous):
+    """(words, valid) of contiguous k-mers, strand-canonical or not."""
+    fn = canonical_kmer_lanes if canonical else kmer_lanes
+    return fn(codes, lengths, k, limits=limits, mask_ambiguous=mask_ambiguous)
+
+
+def _unpack(codes, packed_width: int):
+    """packed_width > 0: codes arrive 2-bit-packed as (B, ceil(L/16))
+    uint32 (io.fasta packed transfer, 4x smaller H2D) and are unpacked
+    on device; packed_width is the row width L."""
+    if packed_width:
+        from ..ops.encode import unpack_codes_u32
+        return unpack_codes_u32(codes, packed_width)
+    return codes
+
+
 @partial(jax.jit, static_argnames=("k", "canonical", "mask_ambiguous",
                                    "group_keys", "packed_width"))
 def count_step_sort(codes, lengths, limits, *, k: int, canonical: bool,
@@ -32,107 +48,14 @@ def count_step_sort(codes, lengths, limits, *, k: int, canonical: bool,
 
     group_keys > 0 runs the grouped partial-aggregation path
     (ops/count.grouped_count): the key stream is counted in independent
-    group_keys-sized slices with the minimum-width repacked comparator
-    — a large measured win (v5e: 1.8x over the flat-layout 2-key sort
-    at group_keys=512) — and the output may contain the same key in
-    several runs, which the host merge aggregates
-    (KmerTable.from_pairs).  group_keys == 0 gives one exact flat sort
-    (globally sorted output; the parity path).
-
-    packed_width > 0: codes arrive 2-bit-packed as (B, ceil(L/16))
-    uint32 (io.fasta packed transfer, 4x smaller H2D) and are unpacked
-    on device; packed_width is the row width L.
+    group_keys-sized slices with the minimum-width repacked comparator,
+    and the output may contain the same key in several runs, which the
+    host merge aggregates (KmerTable.from_pairs).  group_keys == 0 gives
+    one exact flat sort (globally sorted output; the parity path).
     """
-    if packed_width:
-        from ..ops.encode import unpack_codes_u32
-        codes = unpack_codes_u32(codes, packed_width)
-    import os
-    from ..ops.encode import words_per_key
-    # TPU fast path: TRANSPOSED extraction + sublane-axis fused sort
-    # kernel — both the 2k slice-sum shifts and the bitonic
-    # compare-exchange strides run along sublanes, where they are
-    # vreg-index moves instead of lane rotations (measured: the step
-    # drops from 1.13 ms to ~0.6 ms at m=16, scripts/r2_sort_experiments
-    # phases 8-10).  KMER_TPU_STEP=legacy restores the row-layout path.
-    step_backend = os.environ.get("KMER_TPU_STEP", "auto")
-    # the MXU extractor lifts the fused kernel's W <= 2 cap (its 24-bit
-    # chunks stitch into arbitrarily many repacked words): any k <= 63
-    # is fused-eligible under it — as long as its VMEM-resident weight
-    # matrix + accumulator fit (they grow O(k/12 * L)); the shared
-    # policy (select_fused_extract) picks doubling for W == 1 and mxu
-    # for every wider key that fits, with env overrides
-    from ..ops.pallas.fused_extract import select_fused_extract
-    fused_extract = select_fused_extract(k, codes.shape[-1], canonical,
-                                         mask_ambiguous)
-    base_eligible = words_per_key(k) <= 2 and 2 * k != 32
-    t_eligible = group_keys > 0 and fused_extract is not None
-    # Fully fused single-kernel step (extraction + canonical + repack +
-    # segment collapse, ops/pallas/fused_extract): keys never
-    # round-trip HBM between extraction and counting (~68 MB less
-    # traffic per 4.26 M-key batch than the two-stage T path).
-    # Measured on v5e: all-pairs dedup at seg=4 (no sort at all,
-    # r2_sort_experiments phases 15-16: 0.36-0.44 ms/step) beats the
-    # seg=8 bitonic sort+run-length (0.41-0.53 ms same-session) —
-    # the production default on TPU.  KMER_TPU_FUSED_ALGO=sort +
-    # KMER_TPU_T_M=8 restore the bitonic variant.
-    use_fused = (t_eligible
-                 and (step_backend == "fused" or
-                      (step_backend == "auto"
-                       and jax.default_backend() == "tpu")))
-    if use_fused:
-        from ..ops.pallas.fused_extract import fused_extract_count_T
-        algo = os.environ.get("KMER_TPU_FUSED_ALGO", "dedup")
-        # seg=2 measured best for the contiguous dedup kernel on v5e
-        # (r3 alternated sweep: k=21 0.268 vs 0.312 ms at seg=4, k=31
-        # 0.285 vs 0.303; in-segment collapse scope only affects host
-        # pair volume, never the table)
-        seg = int(os.environ.get("KMER_TPU_T_M",
-                                 "2" if algo == "dedup" else "8"))
-        rflat, counts = fused_extract_count_T(
-            codes.T, lengths, limits, k, canonical=canonical,
-            mask_ambiguous=mask_ambiguous, seg=seg, block_lanes=512,
-            algo=algo, extract=fused_extract,
-            interpret=jax.default_backend() != "tpu")
-        std = count_ops.unpack_words(rflat, k)
-        return std, counts > 0, counts
-    use_T = (t_eligible and step_backend == "t" and base_eligible)
-    if use_T:
-        from ..ops.extract import kmer_lanes_repacked_T
-        rw, _ = kmer_lanes_repacked_T(codes.T, lengths, k, limits=limits,
-                                      canonical=canonical,
-                                      mask_ambiguous=mask_ambiguous)
-        # the sublane group size is a kernel tile parameter, not a
-        # semantics one (any m yields the same table under the
-        # partial-aggregation contract), so the backend picks its own:
-        # m=16 measured optimal (m=8: 1.24 ms, m=16: 0.58, m=32: 0.67,
-        # m=64: 0.86 per 4.2M-key step, scripts/r2_sort_experiments
-        # phases 9-10)
-        t_m = int(os.environ.get("KMER_TPU_T_M", "16"))
-        assert t_m > 0 and (t_m & (t_m - 1)) == 0, t_m
-        return count_ops.grouped_count_repacked(rw, k, t_m,
-                                                backend="pallas_t")
-    # measured on v5e: the row-layout Pallas extraction kernel loses to
-    # XLA's fused slice-sum (0.72 ms vs 0.38 ms per 4.26M keys — the 2k
-    # lane-shifted VMEM slices cost more than XLA's re-reads), so it
-    # stays opt-in
-    ex_backend = os.environ.get("KMER_TPU_EXTRACT", "xla")
-    use_pallas_extract = (
-        group_keys > 0 and 17 <= k <= 31 and not mask_ambiguous
-        and ex_backend == "pallas")
-    if use_pallas_extract:
-        # fused extraction -> canonical -> repack in one VMEM pass
-        # (ops/pallas/extract.py); feeds the grouped sort directly in
-        # sort layout
-        from ..ops.pallas.extract import extract_repacked
-        top, bot = extract_repacked(codes, lengths, limits, k, canonical,
-                                    interpret=jax.default_backend() != "tpu")
-        return count_ops.grouped_count_repacked([top, bot], k, group_keys)
-    if canonical:
-        words, valid = canonical_kmer_lanes(codes, lengths, k, limits=limits,
-                                            mask_ambiguous=mask_ambiguous)
-    else:
-        words, valid = kmer_lanes(codes, lengths, k, limits=limits,
-                                  mask_ambiguous=mask_ambiguous)
+    codes = _unpack(codes, packed_width)
+    words, valid = _extract(codes, lengths, limits, k, canonical,
+                            mask_ambiguous)
     if group_keys > 0:
         return count_ops.grouped_count(words, valid, k, group_keys)
     return count_ops.sort_count(words)
@@ -146,45 +69,17 @@ def spaced_step_sort(codes, lengths, limits, *, positions: tuple,
                      group_keys: int = 0, packed_width: int = 0):
     """One device batch of SPACED-SEED keys (ops/extract.spaced_lanes
     semantics): (sorted words, is_start, counts), same contracts as
-    count_step_sort.  positions = the mask's '1' offsets (static).
-
-    TPU default: the fused single-kernel step with the banded-matmul
-    extraction — a spaced seed is just zeroed bands of the same weight
-    matrix, so the don't-care positions cost nothing.  Off-TPU / unfit:
-    XLA slice-sum over the selected offsets + grouped count."""
-    if packed_width:
-        from ..ops.encode import unpack_codes_u32
-        codes = unpack_codes_u32(codes, packed_width)
-    import os
-    from ..ops.extract import spaced_lanes
-    from ..ops.pallas.fused_extract import mxu_fits
-    kk = len(positions)
-    span = positions[-1] + 1
-    step_backend = os.environ.get("KMER_TPU_STEP", "auto")
-    fits = mxu_fits(kk, codes.shape[-1], canonical, mask_ambiguous,
-                    span=span)
-    use_fused = (group_keys > 0 and fits
-                 and (step_backend == "fused" or
-                      (step_backend == "auto"
-                       and jax.default_backend() == "tpu")))
-    if use_fused:
-        from ..ops.pallas.fused_extract import fused_extract_count_T
-        seg = int(os.environ.get("KMER_TPU_T_M", "2"))
-        rflat, counts = fused_extract_count_T(
-            codes.T, lengths, limits, kk, canonical=canonical,
-            mask_ambiguous=mask_ambiguous, seg=seg, block_lanes=512,
-            algo="dedup", positions=positions,
-            interpret=jax.default_backend() != "tpu")
-        std = count_ops.unpack_words(rflat, kk)
-        return std, counts > 0, counts
-    from ..ops.extract import mask_from_positions
+    count_step_sort.  positions = the mask's '1' offsets (static)."""
+    from ..ops.extract import mask_from_positions, spaced_lanes
+    codes = _unpack(codes, packed_width)
     words, valid = spaced_lanes(codes, lengths,
                                 mask_from_positions(positions),
                                 limits=limits,
                                 mask_ambiguous=mask_ambiguous,
                                 canonical=canonical)
     if group_keys > 0:
-        return count_ops.grouped_count(words, valid, kk, group_keys)
+        return count_ops.grouped_count(words, valid, len(positions),
+                                       group_keys)
     return count_ops.sort_count(words)
 
 
@@ -197,43 +92,9 @@ def count_step_compact(codes, lengths, limits, *, k: int, canonical: bool,
     """One device batch with ON-DEVICE COMPACTION: returns
     (records, total) — the host fetches only rows [0, total), so D2H
     scales with distinct k-mers (ops/count.grouped_count_compact)."""
-    if packed_width:
-        from ..ops.encode import unpack_codes_u32
-        codes = unpack_codes_u32(codes, packed_width)
-    import os
-    from ..ops.encode import words_per_key
-    step_backend = os.environ.get("KMER_TPU_STEP", "auto")
-    from ..ops.pallas.fused_extract import select_fused_extract
-    fused_extract = select_fused_extract(k, codes.shape[-1], canonical,
-                                         mask_ambiguous)
-    use_fused = (fused_extract is not None
-                 and (step_backend == "fused" or
-                      (step_backend == "auto"
-                       and jax.default_backend() == "tpu")))
-    if use_fused:
-        # fused single-kernel count core feeding the compaction back
-        # half directly (same repacked run-stream contract)
-        from ..ops.pallas.fused_extract import fused_extract_count_T
-        algo = os.environ.get("KMER_TPU_FUSED_ALGO", "dedup")
-        # seg=2 measured best for the contiguous dedup kernel on v5e
-        # (r3 alternated sweep: k=21 0.268 vs 0.312 ms at seg=4, k=31
-        # 0.285 vs 0.303; in-segment collapse scope only affects host
-        # pair volume, never the table)
-        seg = int(os.environ.get("KMER_TPU_T_M",
-                                 "2" if algo == "dedup" else "8"))
-        rflat, counts = fused_extract_count_T(
-            codes.T, lengths, limits, k, canonical=canonical,
-            mask_ambiguous=mask_ambiguous, seg=seg, block_lanes=512,
-            algo=algo, extract=fused_extract,
-            interpret=jax.default_backend() != "tpu")
-        return count_ops.compact_from_runs(rflat, counts,
-                                           part_keys=part_keys)
-    if canonical:
-        words, valid = canonical_kmer_lanes(codes, lengths, k, limits=limits,
-                                            mask_ambiguous=mask_ambiguous)
-    else:
-        words, valid = kmer_lanes(codes, lengths, k, limits=limits,
-                                  mask_ambiguous=mask_ambiguous)
+    codes = _unpack(codes, packed_width)
+    words, valid = _extract(codes, lengths, limits, k, canonical,
+                            mask_ambiguous)
     return count_ops.grouped_count_compact(words, valid, k, group_keys,
                                            part_keys=part_keys)
 
@@ -248,16 +109,17 @@ def _fetch_host(tree):
 
 # devmerge trades per-batch D2H (~10 B/lane) for two device sorts per
 # batch; on fast links the readback is already cheap and the sorts are
-# pure overhead.  Breakeven ~ (bytes/lane) / (sort seconds/lane).
+# pure overhead.  Breakeven ~ (bytes/lane) / (sort seconds/lane); the
+# value is not yet derived on the current card (ROADMAP 3.3).
 DEVMERGE_BREAKEVEN_GBPS = 0.5
 
 
 def _devmerge_ok(cfg=None) -> bool:
     """Device-resident table accumulation policy (ops/devmerge):
     KMER_TPU_DEVMERGE=1/0 forces (operational escape hatch), then
-    cfg.device_merge "on"/"off"; "auto" = TPU backend with a measured
-    D2H link below the breakeven (the probed-tunnel case,
-    utils.linkspeed)."""
+    cfg.device_merge "on"/"off"; "auto" = a measured D2H link below the
+    breakeven (utils.linkspeed; the CPU backend reports an infinite
+    link, so auto stays off there)."""
     import os
     env = os.environ.get("KMER_TPU_DEVMERGE")
     if env in ("0", "1"):
@@ -266,8 +128,6 @@ def _devmerge_ok(cfg=None) -> bool:
         else "auto"
     if mode in ("on", "off"):
         return mode == "on"
-    if jax.default_backend() != "tpu":
-        return False
     thr = float(os.environ.get("KMER_TPU_DEVMERGE_LINK_GBPS",
                                str(DEVMERGE_BREAKEVEN_GBPS)))
     from ..utils.linkspeed import d2h_gbps
@@ -287,98 +147,31 @@ def fetch_compact_rows(row_blocks, total_rows) -> np.ndarray:
 
 
 def gapped_device_len(cfg: KmerConfig) -> int:
-    """Device row length for GAPPED batching: cfg.max_read_len, re-tiled
-    down to the fused kernel's VMEM fit on TPU (the batcher's c_max-1
-    overlap seams keep extraction exact at any tiling, and the XLA
-    fallback's compile is pathological at large L — see
-    ops/pallas/fused_gapped.max_fused_read_len).  All gapped drivers
-    (single-host, streaming, multihost) batch at this width so every
-    read length stays on the fused path.  KMER_TPU_GAPPED_MAXLEN
-    overrides; off-TPU the user's width is kept (no VMEM, and the XLA
-    CPU compile is fine)."""
+    """Device row length for GAPPED batching, shared by every gapped
+    driver (single-host, streaming, multihost): cfg.max_read_len.  The
+    XLA gapped step's compile time stays well under a second up to the
+    parity width of 512 on the GPU (PERF.md), so no width cap is needed.
+    KMER_TPU_GAPPED_MAXLEN forces a narrower row (floored at the window
+    span); reads then split at the batcher's c_max-1 overlap seams,
+    which keeps extraction exact at any width."""
     import os
     env_ml = os.environ.get("KMER_TPU_GAPPED_MAXLEN")
     if env_ml:
         return max(int(env_ml), cfg.window_span)
-    if jax.default_backend() != "tpu":
-        return cfg.max_read_len
-    from ..ops.pallas.fused_gapped import (_env_kernel_params,
-                                           max_fused_read_len)
-    seg, bl, cnt = _env_kernel_params()
-    fit = max_fused_read_len(cfg.l_len, cfg.r_len, cfg.c_min, cfg.c_max,
-                             cap=cfg.max_read_len, block_lanes=bl,
-                             seg=seg, cnt_bytes=cnt)
-    if 0 < fit < cfg.max_read_len:
-        return fit
     return cfg.max_read_len
 
 
 def gapped_mesh_device_len(cfg: KmerConfig, n_seq: int = 1) -> int:
-    """Mesh variant of gapped_device_len: the largest n_seq-divisible
-    row width <= max_read_len whose PER-SHARD kernel width
-    (w/n_seq + c_max-1 halo) fits the fused kernel's VMEM on TPU.
-    Falls back to cfg.max_read_len when nothing fits — the mesh pairs
-    step then raises its guided config error instead of a Mosaic OOM.
-    KMER_TPU_GAPPED_MAXLEN overrides (rounded up to a multiple of
-    n_seq)."""
+    """Mesh variant of gapped_device_len: KMER_TPU_GAPPED_MAXLEN is
+    rounded up to a multiple of n_seq at or above the window span
+    (rounding down could yield max_len <= overlap (c_max-1) and an
+    assertion in the segmenter); otherwise cfg.max_read_len."""
     import os
     env_ml = os.environ.get("KMER_TPU_GAPPED_MAXLEN")
-    if env_ml:
-        # round UP to a multiple of n_seq at or above the window span —
-        # rounding down could yield max_len <= overlap (c_max-1) and an
-        # assertion in the segmenter (review r4)
+    if env_ml and n_seq > 1:
         w = max(int(env_ml), cfg.window_span)
-        return -(-w // n_seq) * n_seq if n_seq > 1 else w
-    if n_seq <= 1:
-        return gapped_device_len(cfg)
-    if jax.default_backend() != "tpu":
-        return cfg.max_read_len
-    from ..ops.pallas.fused_gapped import (_env_kernel_params,
-                                           max_fused_read_len)
-    seg, bl, cnt = _env_kernel_params()
-    halo = cfg.window_span - 1
-    # largest fitting PER-SHARD kernel width (cached helper; fits is
-    # monotone in width) -> largest n_seq-divisible total width
-    shard_fit = max_fused_read_len(cfg.l_len, cfg.r_len, cfg.c_min,
-                                   cfg.c_max,
-                                   cap=cfg.max_read_len // n_seq + halo,
-                                   block_lanes=bl, seg=seg,
-                                   cnt_bytes=cnt)
-    w = (shard_fit - halo) * n_seq
-    w = min(w, cfg.max_read_len - (cfg.max_read_len % n_seq))
-    if shard_fit > halo and w >= cfg.window_span:
-        return w
-    return cfg.max_read_len
-
-
-def _gapped_fused_ok(codes, l_len: int, r_len: int, c_min: int,
-                     c_max: int, group_keys: int) -> bool:
-    """Shared eligibility for the fused gapped kernel (gapped_step_sort
-    AND gapped_step_compact — keep in lockstep): the grouped
-    partial-aggregation contract (group_keys > 0; 0 callers want one
-    exact flat sort), sub-keys <= 31 bases with a residual word, a
-    stream to build (L >= c_min), and — on auto — the VMEM fit at the
-    knobs the kernel will actually use (long reads should have been
-    re-tiled by gapped_device_len; if a caller batches wider anyway,
-    fall to the XLA path rather than a Mosaic OOM).  An EXPLICIT
-    KMER_TPU_GAPPED_STEP=fused bypasses the fit veto: interpret mode
-    has no VMEM, and on hardware an explicit low-level force surfaces
-    the real compile error instead of being silently ignored."""
-    import os
-    n_bases = l_len + r_len
-    if not (group_keys > 0 and max(l_len, r_len) <= 31
-            and (2 * n_bases) % 32 != 0 and codes.shape[1] >= c_min):
-        return False
-    step_backend = os.environ.get("KMER_TPU_GAPPED_STEP", "auto")
-    if step_backend == "fused":
-        return True
-    if step_backend != "auto" or jax.default_backend() != "tpu":
-        return False
-    from ..ops.pallas.fused_gapped import (_env_kernel_params,
-                                           fused_gapped_fits)
-    seg, bl, cnt = _env_kernel_params()
-    return fused_gapped_fits(codes.shape[1], l_len, r_len, c_min, c_max,
-                             block_lanes=bl, seg=seg, cnt_bytes=cnt)
+        return -(-w // n_seq) * n_seq
+    return gapped_device_len(cfg)
 
 
 @partial(jax.jit, static_argnames=("l_len", "r_len", "c_min", "c_max",
@@ -394,25 +187,7 @@ def gapped_step_sort(codes, lengths, limits, *, c_min: int, c_max: int,
     group_keys/packed_width as in count_step_sort — callers must
     aggregate with KmerTable.from_pairs when group_keys > 0."""
     from ..ops.extract import gapped_lanes
-    if packed_width:
-        from ..ops.encode import unpack_codes_u32
-        codes = unpack_codes_u32(codes, packed_width)
-    import os
-    n_bases = l_len + r_len
-    # TPU fast path: the fully fused gapped kernel (tables + combine +
-    # in-segment dedup in one VMEM pass, ops/pallas/fused_gapped) —
-    # needs the grouped partial-aggregation contract (group_keys > 0;
-    # group_keys == 0 callers want one exact flat sort) and a stream to
-    # build (L >= c_min).  KMER_TPU_GAPPED_STEP=legacy restores the
-    # XLA extraction + grouped-sort path.
-    if _gapped_fused_ok(codes, l_len, r_len, c_min, c_max, group_keys):
-        from ..ops.pallas.fused_gapped import fused_gapped_count_T
-        rflat, counts = fused_gapped_count_T(
-            codes.T, lengths, limits, l_len=l_len, r_len=r_len,
-            c_min=c_min, c_max=c_max, mask_ambiguous=mask_ambiguous,
-            interpret=jax.default_backend() != "tpu")
-        std = count_ops.unpack_words(rflat, n_bases)
-        return std, counts > 0, counts
+    codes = _unpack(codes, packed_width)
     words, valid = gapped_lanes(codes, lengths, l_len, r_len,
                                 c_min=c_min, c_max=c_max, limits=limits,
                                 mask_ambiguous=mask_ambiguous)
@@ -431,23 +206,9 @@ def gapped_step_compact(codes, lengths, limits, *, c_min: int, c_max: int,
                         part_keys: int = 2048, packed_width: int = 0):
     """Gapped batch with ON-DEVICE COMPACTION: (records, total) as
     count_step_compact, with 8-field records for the W=4 chunk keys
-    (ops/pallas/compact.record_width)."""
+    (ops/count.record_width)."""
     from ..ops.extract import gapped_lanes
-    if packed_width:
-        from ..ops.encode import unpack_codes_u32
-        codes = unpack_codes_u32(codes, packed_width)
-    import os
-    n_bases = l_len + r_len
-    # compaction over the fused gapped kernel's repacked run stream
-    # (same eligibility/backend knob as gapped_step_sort)
-    if _gapped_fused_ok(codes, l_len, r_len, c_min, c_max, group_keys):
-        from ..ops.pallas.fused_gapped import fused_gapped_count_T
-        rflat, counts = fused_gapped_count_T(
-            codes.T, lengths, limits, l_len=l_len, r_len=r_len,
-            c_min=c_min, c_max=c_max, mask_ambiguous=mask_ambiguous,
-            interpret=jax.default_backend() != "tpu")
-        return count_ops.compact_from_runs(rflat, counts,
-                                           part_keys=part_keys)
+    codes = _unpack(codes, packed_width)
     words, valid = gapped_lanes(codes, lengths, l_len, r_len,
                                 c_min=c_min, c_max=c_max, limits=limits,
                                 mask_ambiguous=mask_ambiguous)
@@ -461,15 +222,9 @@ def gapped_step_compact(codes, lengths, limits, *, c_min: int, c_max: int,
 def count_step_dense(codes, lengths, limits, hist, *, k: int, canonical: bool,
                      mask_ambiguous: bool = False, packed_width: int = 0):
     """One device batch, dense mode: accumulate into donated 4^k hist."""
-    if packed_width:
-        from ..ops.encode import unpack_codes_u32
-        codes = unpack_codes_u32(codes, packed_width)
-    if canonical:
-        words, valid = canonical_kmer_lanes(codes, lengths, k, limits=limits,
-                                            mask_ambiguous=mask_ambiguous)
-    else:
-        words, valid = kmer_lanes(codes, lengths, k, limits=limits,
-                                  mask_ambiguous=mask_ambiguous)
+    codes = _unpack(codes, packed_width)
+    words, valid = _extract(codes, lengths, limits, k, canonical,
+                            mask_ambiguous)
     return count_ops.dense_histogram(words[-1], valid, k, hist)
 
 
@@ -490,23 +245,19 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
         from ..ops.extract import parse_seed_mask
         seed_positions = parse_seed_mask(cfg.seed_mask)
     n_bases = cfg.n_bases
-    # dense mode, TPU-native split by k (the 4^k output layout is the
-    # same either way):
-    #   k <= 8   — device-resident table via the MXU one-hot histogram
-    #              kernel (4^k MACs/key is cheap here);
-    #   k = 9..12 — link-aware split (scripts/dense_scatter_ab.py, r4):
+    # dense mode, split by k (the 4^k output layout is the same either
+    # way):
+    #   k <= 8   — device-resident table, one scatter-add per batch
+    #              (count_step_dense);
+    #   k = 9..12 — link-aware split (utils.linkspeed.dense_scatter_ok):
     #     fast link ("hybrid"): the device runs the grouped sort-count
-    #              fast path (single-word keys) and the HOST accumulates
-    #              the dense table with one vectorized np.add.at per
-    #              batch, overlapped with the device pipeline (a device
-    #              scatter-add costs a flat ~10 ns/lane on v5e — ~100x
-    #              the fused step — and the MXU outer-product cost
-    #              scales as 4^k/key, so sort+host-add is the
-    #              hardware-shaped answer behind PCIe, VERDICT r1 #5);
-    #     slow link (< ~0.5 GB/s, utils.linkspeed.dense_scatter_ok):
-    #              the scatter's 10 ns/lane undercuts the hybrid's
-    #              5 B/lane per-batch readback — accumulate ON DEVICE
-    #              (count_step_dense scatter path, zero per-batch D2H).
+    #              step (single-word keys) and the HOST accumulates the
+    #              dense table with one vectorized np.add.at per batch,
+    #              overlapped with the device pipeline;
+    #     slow link: the per-batch readback of (key, count) pairs costs
+    #              more than a device scatter-add into a 4^k table —
+    #              accumulate ON DEVICE (count_step_dense, zero
+    #              per-batch D2H).
     dense_scatter = mode == "dense" and cfg.k > 8
     if dense_scatter:
         from ..utils.linkspeed import dense_scatter_ok
@@ -566,7 +317,7 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
 
     aggregated_ids: set = set()     # parts that are already sorted-unique
 
-    # DEVICE-RESIDENT sorted-table accumulation (r5, ops/devmerge):
+    # DEVICE-RESIDENT sorted-table accumulation (ops/devmerge):
     # keys+counts stay on device across batches; the host reads back
     # only distinct rows (once, at drain) instead of ~10 B/lane every
     # batch — the sparse analog of dense mode for slow links.
@@ -694,8 +445,7 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
                 # (O(total^2) across the run).  A non-compacting flush
                 # also saves no memory, so back off HARD — x4 keeps the
                 # merge count logarithmic with a smaller constant than
-                # x2 (measured: the x2 schedule's extra mid-run merge
-                # cost 14 s on a 24 M-distinct corpus)
+                # x2
                 flush_pairs *= 4
             parts.insert(0, merged)
             buffered += merged.num_distinct
@@ -722,16 +472,15 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
     # 2-bit packed H2D transfer: 4x smaller batches (the ambiguity code
     # needs 3 bits, so skip-invalid mode falls back to u8 rows)
     packed = cfg.packed_transfer and not cfg.skip_invalid
-    # gapped: re-tile long reads to the fused kernel's VMEM fit
-    # (gapped_device_len — exactness preserved by the overlap seams)
+    # gapped: the shared gapped row width (gapped_device_len)
     dev_max_len = gapped_device_len(cfg) if cfg.gapped else cfg.max_read_len
-    # TIGHT batch width (r5): narrow the device row width to this
+    # TIGHT batch width: narrow the device row width to this
     # chunk's longest record (rounded up to a multiple of 32, floored
     # at the window span) instead of always padding to
     # cfg.max_read_len.  Exactness is free — reads longer than any
-    # width already split with overlap seams — and on slow links the
-    # padded lanes' readback dominates end-to-end (the r4 e2e corpus
-    # padded L=150 reads to 256: 1.8x the bytes for nothing).  At most
+    # width already split with overlap seams — and padded lanes cost
+    # device work and readback for nothing (150 bp reads padded to 256
+    # would carry 1.8x the bytes).  At most
     # a handful of bucketed widths ever compile; the persistent cache
     # holds them.  KMER_TPU_TIGHT_WIDTH=0 restores fixed-width rows.
     import os as _os
@@ -803,13 +552,12 @@ def count_codes(codes: np.ndarray, offsets: np.ndarray, cfg: KmerConfig,
                     words_out, _is_start, counts_out = out
                     dm_pend.append((list(words_out), counts_out))
                     dm_pend_lanes += int(np.prod(counts_out.shape))
-                    # GROUPED merges (r5): one state sort per ~C/2
+                    # GROUPED merges: one state sort per ~C/2
                     # buffered lanes instead of per batch.  The merge
                     # re-sorts the whole C-row state, so per-batch
                     # merging costs ~C/N state passes per lane —
                     # grouping caps it at ~3 sort passes per lane
-                    # regardless of C (measured: 1 M-read corpus at
-                    # C=2^24 spent 22.6 s in per-batch state sorts).
+                    # regardless of C.
                     target = (dm_counts.shape[0] // 2
                               if dm_counts is not None else 0)
                     if dm_pend_lanes >= target:

@@ -54,23 +54,18 @@ def parity_dump(path: str, cfg: KmerConfig | None = None) -> bytes:
     repeated lines — np.repeat(decode(keys), counts) IS the sorted
     multiset dump (equal chunks are adjacent by construction;
     main.rs:87's duplicates-retained sort guarantees nothing more).
-    This rides the fused gapped kernel instead of the full multiset
+    This rides the grouped gapped count instead of the full multiset
     sort, makes D2H scale with per-batch distinct chunks under
     --compact, decodes each distinct chunk once, and needs no host
     string sort at all.  KMER_TPU_PARITY=multiset restores the direct
     device multiset sort (the parity_dump_stream building block);
     both are md5-pinned on sample.fasta (tests/test_parity.py,
-    tpu_check check 1).
+    chip_smoke.py).
     """
     import os
 
     if cfg is None:
-        import jax
-        # on TPU, on-device compaction makes the readback scale with
-        # distinct chunks (the count driver re-tiles long reads to the
-        # fused kernel's VMEM budget on its own)
-        cfg = KmerConfig(gapped=True, batch_reads=256, max_read_len=512,
-                         compact=jax.default_backend() == "tpu")
+        cfg = KmerConfig(gapped=True, batch_reads=256, max_read_len=512)
     if not cfg.gapped:
         cfg = cfg.replace(gapped=True)
     if os.environ.get("KMER_TPU_PARITY") == "multiset":

@@ -39,6 +39,34 @@ def estimate_distinct_multi_k(paths, ks, cfg: KmerConfig | None = None,
     k values).  Returns [(estimate, total_kmers)] aligned with `ks`.
     cfg.max_read_len must accommodate max(ks)."""
     cfg = cfg or KmerConfig(**cfg_kw)
+    ks, hists, totals = sketch_histograms(paths, ks, cfg, b=b)
+    from ..ops.sketch import HIST_CAP
+    out = []
+    for kk in ks:
+        h = hists[kk]
+        hashed = int(h.sum())     # valid windows actually sketched
+        saturated = bool((h >= HIST_CAP).any())
+        if not cfg.skip_invalid and not saturated:
+            # no masking and no cell at the saturation cap: the sketch
+            # saw every extractable window, so the sums must agree — a
+            # real error (not an assert: it must survive python -O)
+            if hashed != totals[kk]:
+                raise RuntimeError(
+                    f"HLL histogram lost windows at k={kk}: sketched "
+                    f"{hashed} != extracted {totals[kk]} — please report")
+        # strict mode knows the exact total host-side; skip_invalid mode
+        # reports the sketched count (undercounts only past ~2^30
+        # windows PER CELL, i.e. never in practice)
+        total = totals[kk] if not cfg.skip_invalid else hashed
+        out.append((estimate_from_histogram(h, b), total))
+    return out
+
+
+def sketch_histograms(paths, ks, cfg: KmerConfig, *, b: int = 10):
+    """The device pass of estimate_distinct_multi_k: returns (ks,
+    {k: (2^(b+5),) int32 (bucket, rho) class histogram}, {k: windows
+    extracted}) with ks deduplicated (a spaced seed_mask replaces ks by
+    its popcount)."""
     if cfg.gapped:
         raise ValueError("estimation applies to contiguous k-mers")
     if not 1 <= b <= 11:
@@ -88,23 +116,4 @@ def estimate_distinct_multi_k(paths, ks, cfg: KmerConfig | None = None,
                     totals[kk] += int(np.maximum(
                         np.minimum(batch.lengths, batch.start_limits
                                    + span - 1) - span + 1, 0).sum())
-    from ..ops.sketch import HIST_CAP
-    out = []
-    for kk in ks:
-        h = np.asarray(hists[kk])
-        hashed = int(h.sum())     # valid windows actually sketched
-        saturated = bool((h >= HIST_CAP).any())
-        if not cfg.skip_invalid and not saturated:
-            # no masking and no cell at the saturation cap: the sketch
-            # saw every extractable window, so the sums must agree — a
-            # real error (not an assert: it must survive python -O)
-            if hashed != totals[kk]:
-                raise RuntimeError(
-                    f"HLL histogram lost windows at k={kk}: sketched "
-                    f"{hashed} != extracted {totals[kk]} — please report")
-        # strict mode knows the exact total host-side; skip_invalid mode
-        # reports the sketched count (undercounts only past ~2^30
-        # windows PER CELL, i.e. never in practice)
-        total = totals[kk] if not cfg.skip_invalid else hashed
-        out.append((estimate_from_histogram(h, b), total))
-    return out
+    return ks, {kk: np.asarray(h) for kk, h in hists.items()}, totals

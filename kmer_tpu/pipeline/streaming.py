@@ -39,7 +39,7 @@ from ..utils.stats import StatsLogger, Timer
 from .table import KmerTable
 
 MANIFEST = "manifest.json"
-_FORMAT_VERSION = 3        # v3: dev_max_len (gapped VMEM re-tile) in
+_FORMAT_VERSION = 3        # v3: dev_max_len (gapped row width) in
                            # the fingerprint — batch indexing depends
                            # on it, so a resume must use the same width
 
@@ -126,11 +126,8 @@ class StreamingCounter:
         self.P = cfg.partitions
         self.W = words_per_key(self._n_bases)
         self.mesh = mesh
-        # gapped single-device: re-tile long reads to the fused
-        # kernel's VMEM fit (pipeline.count.gapped_device_len; exact
-        # under the overlap seams).  Mesh widths are tied to the seq
-        # sharding instead — make_distributed_gapped_pairs validates
-        # the per-shard width on TPU.
+        # gapped: the shared gapped row width (pipeline.count.
+        # gapped_device_len / gapped_mesh_device_len).
         if cfg.gapped and mesh is None:
             from .count import gapped_device_len
             self._dev_max_len = gapped_device_len(cfg)
@@ -156,9 +153,9 @@ class StreamingCounter:
                 raise ValueError(
                     f"device row width {self._dev_max_len} not divisible "
                     f"by mesh seq axis {n_seq}")
-            # fused-local pair routing when eligible (policy shared
+            # local-count pair routing when eligible (policy shared
             # with the multihost driver, distributed.pairs_eligible)
-            use_pairs = distributed.pairs_eligible(cfg)
+            use_pairs = distributed.pairs_eligible()
             self._dist_pairs = use_pairs
             if cfg.seed_mask is not None and not use_pairs:
                 # the sorted-stream step has no spaced extraction; same
@@ -226,10 +223,10 @@ class StreamingCounter:
                 state = json.load(f)
             if state["fingerprint"] == fp:
                 # batch indexing depends on the device row width the
-                # run STARTED with (gapped re-tile varies by backend /
-                # mesh / env) — adopt the stored width so a run resumes
-                # correctly on a different backend or mesh shape, as
-                # long as the current mesh can shard it
+                # run STARTED with (the gapped width varies with the
+                # mesh and KMER_TPU_GAPPED_MAXLEN) — adopt the stored
+                # width so a run resumes correctly on a different mesh
+                # shape or env, as long as the current mesh can shard it
                 stored = int(state.get("dev_max_len",
                                        self._dev_max_len))
                 if self.mesh is not None:

@@ -153,10 +153,10 @@ class KmerTable:
         """Decode one batch's ON-DEVICE-COMPACTED row blocks
         (ops/count.grouped_count_compact): (R, 128) uint32 rows of
         fixed-width records (repacked key words, count, zero padding —
-        ops/pallas/compact.record_width fields each); dead padding
+        ops/count.record_width fields each); dead padding
         records carry count == 0 and are dropped; converts back to std
         key words and aggregates."""
-        from ..ops.pallas.compact import record_width
+        from ..ops.count import record_width
         W = words_per_key(n_bases)
         rec_w = record_width(W + 1)
         rows = np.asarray(row_blocks).reshape(-1, rec_w)

@@ -5,6 +5,9 @@ independent reimplementation diffed against the Rust binary (test.py:14-40
 vs main.rs:43-92).  We adopt that as a first-class subsystem: every
 device path has a tiny, obviously-correct host oracle here, and the test
 suite asserts exact agreement (SURVEY.md §4).
+
+Nothing here imports the engine's own ops: an oracle that shared the
+engine's encoding or extraction code would share its bugs.
 """
 
 from __future__ import annotations
@@ -12,7 +15,14 @@ from __future__ import annotations
 from collections import Counter
 from typing import Iterable
 
-from ..ops.encode import revcomp_str
+import numpy as np
+
+_COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
+
+
+def revcomp_str(seq: str) -> str:
+    """Reverse complement of an ACGT string."""
+    return "".join(_COMP[b] for b in reversed(seq))
 
 
 def oracle_gapped_lines(seqs: Iterable[str], l_len: int = 27, r_len: int = 27,
@@ -103,7 +113,6 @@ def mask_low_quality(seq: str, qual: str, min_qual: int) -> str:
     masking (io/native/fasta_pack.cpp fastq_walk)."""
     if min_qual <= 0:
         return seq
-    import numpy as np
     arr = np.frombuffer(seq.encode(), np.uint8).copy()
     qarr = np.frombuffer(qual.encode(), np.uint8)
     arr[qarr < 33 + min_qual] = ord("N")
@@ -204,3 +213,134 @@ def read_fastq_stream(f, min_qual: int = 0):
         if ql != len(s):
             raise ValueError("truncated FASTQ record")
         yield mask_low_quality(s, "".join(q), min_qual)
+
+
+# ---------------------------------------------------------------------------
+# Vectorized NumPy oracle: whole read sets at corpus scale.
+# ---------------------------------------------------------------------------
+
+# ASCII -> 2-bit code (A=0, C=1, G=2, T=3, either case); 4 = any other
+# byte (ambiguous).  Code order is ASCII order, so integer key order is
+# string order.
+_CODE_LUT = np.full(256, 4, np.uint8)
+for _i, _b in enumerate("ACGT"):
+    _CODE_LUT[ord(_b)] = _i
+    _CODE_LUT[ord(_b.lower())] = _i
+
+
+def read_fasta_codes_np(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """FASTA file -> ((R, Lmax) uint8 code matrix, (R,) int64 lengths).
+
+    Same record semantics as read_fasta_py ('>' at column 0 starts a
+    record, sequence lines concatenate, whitespace is dropped); rows are
+    padded past their length with code 4."""
+    with open(path, "rb") as f:
+        data = f.read()
+    seqs: list[bytes] = []
+    cur: list[bytes] | None = None
+    for line in data.split(b"\n"):
+        if line.startswith(b">"):
+            if cur is not None:
+                seqs.append(b"".join(cur))
+            cur = []
+            continue
+        s = b"".join(line.split())
+        if not s:
+            continue
+        if cur is None:
+            raise ValueError("sequence data before first FASTA header")
+        cur.append(s)
+    if cur is not None:
+        seqs.append(b"".join(cur))
+    lengths = np.array([len(s) for s in seqs], np.int64)
+    width = int(lengths.max(initial=0))
+    if len(seqs) and (lengths == width).all():
+        flat = np.frombuffer(b"".join(seqs), np.uint8)
+        return _CODE_LUT[flat].reshape(len(seqs), width), lengths
+    codes = np.full((len(seqs), width), 4, np.uint8)
+    for i, s in enumerate(seqs):
+        codes[i, :len(s)] = _CODE_LUT[np.frombuffer(s, np.uint8)]
+    return codes, lengths
+
+
+def oracle_keys_np(codes: np.ndarray, lengths: np.ndarray, k: int,
+                   canonical: bool = False, skip_invalid: bool = False,
+                   mask: str | None = None) -> np.ndarray:
+    """(N, W) uint32 key of every counted window of a read set, in
+    (read, position) order — the vectorized twin of oracle_kmers /
+    oracle_spaced.
+
+    codes: (R, L) uint8 2-bit base codes (values >= 4 are ambiguous
+    bases), rows padded past `lengths`.  Keys use the engine's std
+    layout: W = ceil((2n+1)/32) words, most significant first, value =
+    sum_i code[i] * 4^(n-1-i) over the n key bases (first base most
+    significant).  mask: a spaced seed ('1' = key base, k is then
+    ignored); canonical keys take the smaller of a window and its
+    reverse complement (spaced: palindromic masks only).  skip_invalid
+    drops windows holding an ambiguous key base; without it such a
+    window is an error, as in the engine's strict mode."""
+    codes = np.asarray(codes, np.uint8)
+    lengths = np.asarray(lengths, np.int64)
+    if mask is not None:
+        offsets = [i for i, ch in enumerate(mask) if ch == "1"]
+        span = len(mask)
+    else:
+        offsets, span = list(range(k)), k
+    n = len(offsets)
+    R, L = codes.shape
+    W = (2 * n + 1 + 31) // 32
+    P = L - span + 1
+    if P <= 0 or R == 0:
+        return np.zeros((0, W), np.uint32)
+    valid = np.arange(P)[None, :] <= (lengths[:, None] - span)
+    amb = np.zeros((R, P), bool)
+    fwd = [np.zeros((R, P), np.uint32) for _ in range(W)]
+    rev = [np.zeros((R, P), np.uint32) for _ in range(W)] if canonical \
+        else None
+    for i, off in enumerate(offsets):
+        sl = codes[:, off:off + P]
+        amb |= sl >= 4
+        base = (sl & 3).astype(np.uint32)
+        bit = 2 * (n - 1 - i)              # first base most significant
+        fwd[W - 1 - bit // 32] |= base << np.uint32(bit % 32)
+        if canonical:                      # complement lands at bit 2i
+            rbit = 2 * i
+            rev[W - 1 - rbit // 32] |= (3 - base) << np.uint32(rbit % 32)
+    if (amb & valid).any() and not skip_invalid:
+        raise ValueError("ambiguous base inside a counted window "
+                         "(pass skip_invalid=True to drop such windows)")
+    valid &= ~amb
+    words = fwd
+    if canonical:
+        # lexicographic fwd < rev, least significant word first
+        lt = np.zeros((R, P), bool)
+        for f, r in zip(reversed(fwd), reversed(rev)):
+            lt = (f < r) | ((f == r) & lt)
+        words = [np.where(lt, f, r) for f, r in zip(fwd, rev)]
+    return np.stack([w[valid] for w in words], axis=1)
+
+
+def oracle_count_np(codes: np.ndarray, lengths: np.ndarray, k: int,
+                    canonical: bool = False, skip_invalid: bool = False,
+                    mask: str | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """(keys, counts) of a read set, vectorized: the sorted unique keys
+    of oracle_keys_np as (M, W) uint32 std-layout words and their (M,)
+    int64 counts — directly comparable with a KmerTable's keys/counts.
+    Arguments as oracle_keys_np."""
+    keys = oracle_keys_np(codes, lengths, k, canonical, skip_invalid, mask)
+    W = keys.shape[1]
+    if W <= 2:
+        v = keys[:, -1].astype(np.uint64)
+        if W == 2:
+            v |= keys[:, 0].astype(np.uint64) << np.uint64(32)
+        u, counts = np.unique(v, return_counts=True)
+        out = [(u >> np.uint64(32)).astype(np.uint32),
+               (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)][2 - W:]
+        return np.stack(out, axis=1), counts.astype(np.int64)
+    # big-endian rows compare bytewise in lexicographic word order
+    be = np.ascontiguousarray(keys.astype(">u4"))
+    rows = be.view(np.dtype((np.void, 4 * W))).reshape(-1)
+    u, counts = np.unique(rows, return_counts=True)
+    out = np.frombuffer(u.tobytes(), ">u4").reshape(-1, W).astype(np.uint32)
+    return out, counts.astype(np.int64)

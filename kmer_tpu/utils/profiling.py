@@ -5,15 +5,14 @@ Cargo.toml:8-10).  Here:
 
   * `trace(dir)` wraps jax.profiler.trace — open the dump with
     tensorboard/xprof to see per-op device timelines;
-  * `Roofline` converts a measured stage time into achieved fraction of
-    the HBM roofline, the north-star metric (BASELINE.json: >=80% of
-    roofline k-mers/s/chip).
+  * `Roofline` converts a measured step time into the achieved fraction
+    of the device-memory roofline.
 
-The roofline model for sort-mode counting charges the minimum HBM
-traffic the algorithm must move: the code batch in, plus one round trip
-of the packed keys for the VMEM-resident sort (read once, write once),
-plus the run-length outputs.  Dense mode charges the histogram update
-instead.
+The roofline model for sort-mode counting charges the minimum
+device-memory traffic the algorithm must move: the code batch in, plus
+one round trip of the packed keys between extraction and sort (read
+once, write once), plus the run-length outputs.  Dense mode charges the
+histogram update instead.
 """
 
 from __future__ import annotations
@@ -21,29 +20,23 @@ from __future__ import annotations
 import contextlib
 from dataclasses import dataclass
 
-# Peak HBM bandwidth per chip, bytes/s.  v5e ≈ 819 GB/s (public spec);
-# override for other parts.
+# Peak device-memory bandwidth, bytes/s, keyed by jax device_kind
+# (NVIDIA H100 data sheet: SXM 3.35 TB/s, PCIe 80 GB 2.0 TB/s).
 HBM_BYTES_PER_S = {
-    "v5e": 819e9,
-    "v4": 1228e9,
-    "v5p": 2765e9,
-    "v6e": 1640e9,
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+    "NVIDIA H100 PCIe": 2.0e12,
 }
 
 
-def detect_hbm_bw(default: float = 819e9) -> float:
-    """Best-effort peak HBM bandwidth of the attached device."""
-    try:
-        import jax
-        kind = jax.devices()[0].device_kind.lower()
-        for tag, bw in HBM_BYTES_PER_S.items():
-            if tag in kind.replace(" ", ""):
-                return bw
-        if "v5 lite" in kind or "v5lite" in kind:
-            return HBM_BYTES_PER_S["v5e"]
-    except Exception:
-        pass
-    return default
+def detect_hbm_bw() -> float:
+    """Published peak device-memory bandwidth of the attached device.
+    A device missing from HBM_BYTES_PER_S is an error, not a default."""
+    import jax
+    kind = jax.devices()[0].device_kind
+    if kind not in HBM_BYTES_PER_S:
+        raise ValueError(f"no peak bandwidth known for device {kind!r}; "
+                         f"add it to utils.profiling.HBM_BYTES_PER_S")
+    return HBM_BYTES_PER_S[kind]
 
 
 @contextlib.contextmanager
@@ -60,7 +53,7 @@ def trace(log_dir: str | None):
 @dataclass
 class Roofline:
     """Minimum-traffic model for one count step."""
-    batch_bytes: int      # packed code batch in
+    batch_bytes: int      # code batch in
     key_bytes: int        # N * W * 4, one read + one write for the sort
     out_bytes: int        # run-length outputs
 
@@ -73,7 +66,7 @@ class Roofline:
 
     def fraction(self, measured_seconds: float,
                  hbm_bytes_per_s: float | None = None) -> float:
-        """Achieved fraction of the HBM roofline (1.0 = speed of light)."""
+        """Achieved fraction of the roofline (1.0 = speed of light)."""
         return self.seconds_at_roofline(hbm_bytes_per_s) / measured_seconds
 
     @staticmethod
@@ -86,11 +79,10 @@ class Roofline:
     @staticmethod
     def for_fused_step(B: int, L: int, k: int, W: int,
                        cnt_bytes: int = 4) -> "Roofline":
-        """Minimum traffic for the FUSED single-kernel step: codes in
-        once, keys + counts out once — no sort round trip (key_bytes=0;
-        the two-stage model above budgets one read + one write between
-        extraction and sort, which the fused kernel eliminated).  The
-        honest denominator for the production default."""
+        """Minimum traffic of a step that never writes its keys between
+        extraction and counting: codes in once, keys + counts out once
+        (key_bytes=0).  The bound a fused extract + count step would
+        approach."""
         N = B * (L - k + 1)
         return Roofline(batch_bytes=B * L, key_bytes=0,
                         out_bytes=N * (W * 4 + cnt_bytes))

@@ -5,7 +5,7 @@ headline metric).
 
   1 k=21 exact count on sample.fasta (parity vs oracle)
   2 k=31 canonical on synthetic 150bp reads (end-to-end reads/s)
-  3 dense small-k: k=8 (MXU histogram) and k=12 (scatter)
+  3 dense small-k: k=8 and k=12
   4 streaming two-pass over a large synthetic corpus
   (config 5, multi-host, is exercised by dryrun_multichip + tests)
 

@@ -13,7 +13,8 @@ import time
 
 import numpy as np
 
-from kmer_tpu.utils.jaxcache import enable_compilation_cache
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from kmer_tpu.utils.jaxcache import enable_compilation_cache  # noqa: E402
 enable_compilation_cache()
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 2048

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Host merge A/B: numpy from_pairs core vs the native bucket-parallel
 aggregator (pipeline/nativeagg.py) across key widths and duplicate
-ratios.  Pure host benchmark — no TPU; run on an idle machine.
+ratios.  Pure host benchmark — no accelerator; run on an idle machine.
 
 Usage: python scripts/host_merge_bench.py [--n 8388608] [--reps 5]
 """

@@ -397,8 +397,7 @@ def test_dense_hybrid_k9_12(tmpdir, k):
 def test_dense_scatter_k9_12(tmpdir, monkeypatch, k):
     """Dense k=9..12 on a SLOW link accumulates the 4^k table on
     device (scatter-add, zero per-batch D2H) — must equal the hybrid,
-    sort mode, and the oracle (r4 dense_scatter_ab: scatter ~10 ns/lane
-    beats 5 B/lane readback below ~0.49 GB/s)."""
+    sort mode, and the oracle."""
     path = _write(tmpdir, random_reads_fasta(25, 48, seed=k), f"ds{k}.fasta")
     cfg = KmerConfig(k=k, mode="dense", batch_reads=8, max_read_len=48)
     monkeypatch.setenv("KMER_TPU_DENSE_SCATTER", "1")
@@ -430,22 +429,15 @@ def test_compact_mode_matches(tmpdir, k):
 
 
 @pytest.mark.parametrize("k", [11, 21])
-def test_compact_mode_fused_step(tmpdir, k):
-    """Compaction fed by the fused single-kernel count core
-    (KMER_TPU_STEP=fused -> compact_from_runs), interpret mode."""
-    import os
+def test_compact_mode_small_groups(tmpdir, k):
+    """Compaction over 16-key sort groups (many partial runs per
+    partition) must yield the table of the uncompacted default."""
     path = _write(tmpdir, reference_style_fasta(n_records=6, seed=k + 1),
                   f"cpf{k}.fasta")
     base = KmerConfig(k=k, mode="sort", batch_reads=8, max_read_len=512,
                       canonical=(k == 21))
     want = count_fasta(path, base)
-    os.environ["KMER_TPU_STEP"] = "fused"
-    os.environ["KMER_TPU_T_M"] = "8"
-    try:
-        got = count_fasta(path, base.replace(compact=True))
-    finally:
-        del os.environ["KMER_TPU_STEP"]
-        del os.environ["KMER_TPU_T_M"]
+    got = count_fasta(path, base.replace(compact=True, sort_group_keys=16))
     assert got == want
     assert got.counts.max() > 1
 
@@ -511,11 +503,10 @@ def test_very_wide_keys_k101(tmp_path):
 
 def test_auto_mode_link_aware(monkeypatch):
     """auto routes k<=8 to dense only when the D2H link is slower than
-    the breakeven (VERDICT r3 #7): dense's device-resident table trades
-    ~75x per-key device time for O(4^k)-once readback, which only pays
-    on slow links."""
+    the breakeven: dense's device-resident table trades per-key device
+    time for O(4^k)-once readback, which only pays on slow links."""
     cfg = KmerConfig(k=8)
-    monkeypatch.setenv("KMER_TPU_D2H_GBPS", "0.15")   # tunneled rig
+    monkeypatch.setenv("KMER_TPU_D2H_GBPS", "0.15")   # slow link
     assert cfg.effective_mode == "dense"
     monkeypatch.setenv("KMER_TPU_D2H_GBPS", "50")     # PCIe host
     assert cfg.effective_mode == "sort"
@@ -527,50 +518,42 @@ def test_auto_mode_link_aware(monkeypatch):
     assert KmerConfig(k=8, mode="dense").effective_mode == "dense"
 
 
-def test_fused_gapped_vmem_guard():
-    """The fused gapped kernel's VMEM model: short reads fit, long
-    reads must re-tile — at L=512 the kernel wants ~228 MiB of the
-    128 MiB budget; at grid > 2 Mosaic double-buffers the windows and
-    adds spill slots (L=279 compact grid-8: 141.86 MiB) — measured on
-    v5e, r4."""
-    from kmer_tpu.ops.pallas.fused_gapped import (fused_gapped_fits,
-                                                  max_fused_read_len)
-    assert fused_gapped_fits(150, 27, 27, 80, 140)
-    assert not fused_gapped_fits(512, 27, 27, 80, 140)
-    assert not fused_gapped_fits(40, 27, 27, 80, 140)   # no stream
-    best = max_fused_read_len(27, 27, 80, 140, cap=512)
-    assert 150 <= best < 280        # the bench shape always stays fused
-    # re-tile progress: the device row length must exceed the overlap
-    assert best > 140 - 1
+def test_gapped_device_len_keeps_wide_rows():
+    """Without an override, gapped batches keep the user's row width at
+    any size (the XLA gapped step needs no re-tiling)."""
+    from kmer_tpu.pipeline.count import gapped_device_len
+    for w in (140, 300, 512, 4096):
+        assert gapped_device_len(KmerConfig(gapped=True,
+                                            max_read_len=w)) == w
+
+
+def test_gapped_mesh_device_len_default():
+    """The mesh width is cfg.max_read_len for every seq-axis size
+    without an override (the drivers then check n_seq divisibility)."""
+    from kmer_tpu.pipeline.count import (gapped_device_len,
+                                         gapped_mesh_device_len)
+    cfg = KmerConfig(gapped=True, max_read_len=512)
+    for n_seq in (1, 2, 4):
+        assert gapped_mesh_device_len(cfg, n_seq) == 512
+    assert gapped_mesh_device_len(cfg, 1) == gapped_device_len(cfg)
 
 
 def test_gapped_device_len_policy(monkeypatch):
-    """gapped_device_len: off-TPU keeps the user's width (this suite
-    runs on CPU); KMER_TPU_GAPPED_MAXLEN overrides and is floored at
-    the window span."""
+    """gapped_device_len keeps the user's width;
+    KMER_TPU_GAPPED_MAXLEN overrides and is floored at the window
+    span."""
     from kmer_tpu.pipeline.count import gapped_device_len
     cfg = KmerConfig(gapped=True, max_read_len=512)
-    assert gapped_device_len(cfg) == 512          # CPU backend: as-is
+    assert gapped_device_len(cfg) == 512          # as-is
     monkeypatch.setenv("KMER_TPU_GAPPED_MAXLEN", "200")
     assert gapped_device_len(cfg) == 200
     monkeypatch.setenv("KMER_TPU_GAPPED_MAXLEN", "50")
     assert gapped_device_len(cfg) == cfg.window_span   # floored
 
 
-def test_fused_gapped_fits_env_aware():
-    """The VMEM model must track the knobs the kernel honors: wider
-    block_lanes and i32 count planes shrink the max fitting L."""
-    from kmer_tpu.ops.pallas.fused_gapped import max_fused_read_len
-    base = max_fused_read_len(27, 27, 80, 140, cap=512)
-    wide = max_fused_read_len(27, 27, 80, 140, cap=512, block_lanes=512)
-    i32 = max_fused_read_len(27, 27, 80, 140, cap=512, cnt_bytes=4)
-    assert wide < base
-    assert i32 < base
-
-
 def test_gapped_retile_width_bit_identity(tmpdir, monkeypatch):
-    """Forcing a narrower gapped device width (the TPU re-tile,
-    simulated on CPU via KMER_TPU_GAPPED_MAXLEN) must be bit-identical
+    """Forcing a narrower gapped device width (KMER_TPU_GAPPED_MAXLEN)
+    must be bit-identical
     to the full-width run — across count_fasta, the streaming counter,
     and the single-process multihost driver (the overlap seams make
     extraction exact at any tiling)."""

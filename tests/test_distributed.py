@@ -75,12 +75,12 @@ def _table_from_pairs(k, out):
 @pytest.mark.parametrize("shape,canonical,k", [
     ((8, 1), False, 21),
     ((8, 1), True, 21),
-    ((4, 2), True, 21),    # halo'd fused extraction across seq shards
+    ((4, 2), True, 21),    # halo'd local extraction across seq shards
     ((2, 4), False, 13),
     ((1, 8), True, 11),    # pure sequence parallelism
 ])
 def test_distributed_pairs_matches_oracle(shape, canonical, k):
-    """Fused-local pair routing (count_step_distributed_pairs): same
+    """Local-count pair routing (count_step_distributed_pairs): same
     tables as the oracle, incl. sequence-parallel halo'd extraction."""
     rng = np.random.default_rng(k * 7 + shape[0])
     B, L = 16, 64
@@ -115,30 +115,47 @@ def test_distributed_pairs_identical_across_mesh_shapes():
     assert tables[0] == sorted_path
 
 
-def test_distributed_pairs_wide_key_fallback(monkeypatch):
-    """Wide keys (W > 2) without a fitting mxu extractor fall back to
-    XLA extraction with per-lane pairs — same table, no fused kernel."""
+def test_distributed_pairs_wide_key_fallback():
+    """Wide keys (W = 3) through the pairs step: same table as the
+    oracle and as the sorted-stream step, with and without sequence
+    sharding."""
     rng = np.random.default_rng(2)
     B, L, k = 8, 80, 33
     seqs, codes, lens, lims = _corpus(rng, B, L)
+    want = dict(oracle.oracle_count(seqs, k, True))
+    args = (jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(lims))
+    for shape in ((8, 1), (2, 2)):
+        m = mesh_lib.make_mesh(*shape)
+        fn = distributed.make_distributed_count_pairs(m, k=k, canonical=True)
+        table = _table_from_pairs(k, fn(*args))
+        assert table.to_dict() == want, shape
+    sfn = distributed.make_distributed_count(mesh_lib.make_mesh(8, 1), k=k,
+                                             canonical=True)
+    assert _table_from(k, sfn(*args)) == table
+
+
+def test_pairs_step_collapses_duplicates_locally():
+    """The pairs step's local grouped count routes each distinct key of
+    a sort slice once: on all-identical reads every device ships ~one
+    pair per slice, far fewer than its lanes, with the exact counts."""
+    reads = ["ACGTTGCA" * 8] * 16
+    codes = np.stack([encode_seq(s) for s in reads])
+    lens = np.full((16,), 64, np.int32)
     m = mesh_lib.make_mesh(8, 1)
-    fn = distributed.make_distributed_count_pairs(m, k=k, canonical=True)
-    out = fn(jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(lims))
-    table = _table_from_pairs(k, out)
-    assert table.to_dict() == dict(oracle.oracle_count(seqs, k, True))
-    # with mxu requested and fitting, the fused kernel path must agree
-    # (fresh factory: the env is read at trace time)
-    monkeypatch.setenv("KMER_TPU_FUSED_EXTRACT", "mxu")
-    from kmer_tpu.ops.pallas.fused_extract import mxu_fits
-    assert mxu_fits(k, L, True, False)
-    fn2 = distributed.make_distributed_count_pairs(m, k=k, canonical=True)
-    out2 = fn2(jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(lims))
-    assert _table_from_pairs(k, out2) == table
+    fn = distributed.make_distributed_count_pairs(m, k=5)
+    words, counts, overflow = fn(jnp.asarray(codes), jnp.asarray(lens),
+                                 jnp.asarray(lens))
+    assert not bool(overflow)
+    live = int((np.asarray(words[0]) != 0xFFFFFFFF).sum())
+    n_lanes = 16 * (64 - 5 + 1)
+    assert live < n_lanes // 10
+    table = KmerTable.from_routed_pairs(5, words, counts)
+    assert table.to_dict() == dict(oracle.oracle_count(reads, 5))
 
 
 @pytest.mark.parametrize("shape", [(8, 1), (4, 2)])
 def test_distributed_gapped_pairs_matches_oracle(shape):
-    """Fused-local gapped pair routing == gapped oracle, incl. the
+    """Local-count gapped pair routing == gapped oracle, incl. the
     halo'd sequence-parallel case."""
     from collections import Counter
     rng = np.random.default_rng(shape[0])
@@ -183,8 +200,12 @@ def test_distributed_overflow_flag():
     fn = distributed.make_distributed_count(m, k=5, capacity=1)
     *_, overflow = fn(jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(lims))
     assert bool(overflow)
+    # the pairs step collapses equal keys locally before routing, so it
+    # needs several DISTINCT keys per destination to overflow
+    rng = np.random.default_rng(4)
+    _, rcodes, _, _ = _corpus(rng, 8, 32)
     pfn = distributed.make_distributed_count_pairs(m, k=5, capacity=1)
-    *_, poverflow = pfn(jnp.asarray(codes), jnp.asarray(lens),
+    *_, poverflow = pfn(jnp.asarray(rcodes), jnp.asarray(lens),
                         jnp.asarray(lims))
     assert bool(poverflow)
 
@@ -343,29 +364,26 @@ def test_skewed_corpus_streaming_overflow_retry(tmp_path, monkeypatch):
     assert sc.final_table().to_dict() == dict(want)
 
 
-def test_gapped_mesh_width_validation(monkeypatch):
-    """On TPU the gapped pairs step must reject per-shard widths that
-    exceed the fused kernel's VMEM fit with a config error (not an
-    opaque Mosaic OOM).  The backend is monkeypatched to 'tpu' — the
-    width check raises before any kernel would compile."""
-    import jax
-    import numpy as np
-    import jax.numpy as jnp
-    from kmer_tpu.parallel import distributed, mesh as mesh_lib
-
-    m = mesh_lib.make_mesh(8, 1)
-    fn = distributed.make_distributed_gapped_pairs(m)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    codes = jnp.asarray(np.zeros((8, 512), np.uint8))
-    lengths = jnp.full((8,), 512, jnp.int32)
-    limits = jnp.full((8,), 512, jnp.int32)
-    with pytest.raises(ValueError, match="VMEM fit"):
-        fn(codes, lengths, limits)
-    # a fitting width passes the guard (the call itself runs on CPU
-    # interpret after the monkeypatch is popped)
-    monkeypatch.undo()
-    codes = jnp.asarray(np.zeros((8, 150), np.uint8))
-    lengths = jnp.full((8,), 150, jnp.int32)
-    limits = jnp.full((8,), 150, jnp.int32)
-    out = fn(codes, lengths, limits)
-    assert out is not None
+def test_pairs_eligible_policy(monkeypatch, tmp_path):
+    """Every key kind has a pairs body, so the drivers use it by
+    default — here a k=101 (W=7) streaming run over the mesh, which
+    the pairs step's first-accelerator kernel could not take;
+    KMER_TPU_MULTIHOST_STEP=legacy selects the sorted-stream step."""
+    from kmer_tpu import KmerConfig
+    from kmer_tpu.pipeline.streaming import StreamingCounter
+    monkeypatch.delenv("KMER_TPU_MULTIHOST_STEP", raising=False)
+    assert distributed.pairs_eligible()
+    rng = np.random.default_rng(6)
+    seqs, _, _, _ = _corpus(rng, 8, 120)
+    p = tmp_path / "w.fasta"
+    p.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs)))
+    cfg = KmerConfig(k=101, canonical=True, batch_reads=8,
+                     max_read_len=128, partitions=2)
+    sc = StreamingCounter(str(p), cfg, str(tmp_path / "sp"),
+                          mesh=mesh_lib.make_mesh(8, 1))
+    assert sc._dist_pairs
+    sc.run()
+    assert sc.final_table().to_dict() == dict(
+        oracle.oracle_count(seqs, 101, True))
+    monkeypatch.setenv("KMER_TPU_MULTIHOST_STEP", "legacy")
+    assert not distributed.pairs_eligible()

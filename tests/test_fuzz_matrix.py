@@ -138,7 +138,7 @@ def test_fuzz_fastq_minqual_matrix(tmp_path, trial):
 @pytest.mark.parametrize("trial", range(6))
 def test_fuzz_spaced_matrix(tmp_path, trial):
     """Random masks x random corpora x config fuzz vs the spaced
-    string oracle (XLA path; the fused kernel is pinned separately)."""
+    string oracle."""
     rng = np.random.default_rng(9000 + trial)
     reads = _random_corpus(rng)
     text = "".join(f">r{i}\n{s}\n" for i, s in enumerate(reads))

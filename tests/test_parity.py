@@ -130,7 +130,7 @@ def test_parity_multiset_path_identical(tmpdir, monkeypatch):
 
 
 def test_parity_compact_cfg_identical(tmpdir):
-    """parity via the compacted gapped count (the TPU default cfg) ==
+    """parity via the compacted gapped count ==
     non-compact == oracle."""
     text = reference_style_fasta(n_records=6, seed=11)
     p = _write(tmpdir, text, "pc.fasta")

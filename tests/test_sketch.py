@@ -39,8 +39,8 @@ def test_rho_known_values():
 
 
 def test_hll_step_histogram_matches_oracle():
-    """Device step (extract + hash + MXU class histogram, interpret
-    mode) accumulates exactly the oracle histogram of the same reads."""
+    """Device step (extract + hash + scatter-add class histogram)
+    accumulates exactly the oracle histogram of the same reads."""
     from kmer_tpu.ops.encode import encode_seq, key_words_from_codes
     rng = np.random.default_rng(3)
     B, L, k, b = 12, 40, 21, 8

@@ -1,9 +1,9 @@
 """Spaced-seed counting (PatternHunter-style 0/1 match masks).
 
-Differential contracts: the XLA slice-sum extractor and the fused MXU
-kernel (interpret mode) must both equal the string oracle, across key
-widths, canonical (palindromic masks), skip-invalid, packed transfer,
-and split-read seams."""
+Differential contracts: the slice-sum extractor and the grouped spaced
+count step must equal the string oracle, across key widths, canonical
+(palindromic masks), skip-invalid, packed transfer, and split-read
+seams."""
 
 import numpy as np
 import pytest
@@ -60,29 +60,28 @@ def test_spaced_lanes_matches_oracle(mask, canon, amb):
     ("1" * 10 + "0" * 5 + "1" * 10, False, False),
     ("1011101110111011101", True, True),
 ])
-def test_spaced_fused_mxu_matches_xla(mask, canon, amb):
-    """The fused kernel's spaced bands (interpret mode) == spaced_lanes
-    as aggregated tables."""
-    from kmer_tpu.ops import count as C
-    from kmer_tpu.ops.pallas.fused_extract import fused_extract_count_T
+def test_spaced_step_grouped_matches_lanes(mask, canon, amb):
+    """The grouped spaced count step (spaced_step_sort, packed 2-bit
+    transfer off) == spaced_lanes as aggregated tables, with short
+    reads and ownership limits."""
+    from kmer_tpu.pipeline.count import spaced_step_sort
     positions = parse_seed_mask(mask)
     kk = len(positions)
     rng = np.random.default_rng(len(mask) * 7 + canon + amb)
     B, L = 48, 64
     hi = 8 if amb else 4
-    codes = rng.integers(0, hi, (L, B), dtype=np.uint8)
+    codes = rng.integers(0, hi, (B, L), dtype=np.uint8)
     lengths = rng.integers(0, L + 1, B).astype(np.int32)
     limits = rng.integers(0, L + 1, B).astype(np.int32)
-    rflat, counts = fused_extract_count_T(
+    std, is_start, counts = spaced_step_sort(
         jnp.asarray(codes), jnp.asarray(lengths), jnp.asarray(limits),
-        kk, canonical=canon, mask_ambiguous=amb, seg=2, block_lanes=128,
-        algo="dedup", positions=positions, interpret=True)
-    std = C.unpack_words(rflat, kk)
+        positions=positions, canonical=canon, mask_ambiguous=amb,
+        group_keys=64)
     ks = np.stack([np.asarray(w).reshape(-1) for w in std], 1)
     cc = np.asarray(counts).reshape(-1)
-    sel = cc > 0
+    sel = np.asarray(is_start).reshape(-1) & (cc > 0)
     got = KmerTable.from_pairs(kk, ks[sel], cc[sel].astype(np.int64))
-    words, valid = spaced_lanes(jnp.asarray(codes.T),
+    words, valid = spaced_lanes(jnp.asarray(codes),
                                 jnp.asarray(lengths), mask,
                                 limits=jnp.asarray(limits),
                                 mask_ambiguous=amb, canonical=canon)
@@ -93,9 +92,8 @@ def test_spaced_fused_mxu_matches_xla(mask, canon, amb):
 
 
 def test_spaced_count_end_to_end(tmp_path):
-    """count_fasta with seed_mask (XLA path on CPU + split reads +
-    packed transfer) == oracle; the fused path is forced too."""
-    import os
+    """count_fasta with seed_mask (split reads + packed transfer) ==
+    oracle, and the grouped pipeline == the flat-sort pipeline."""
     from kmer_tpu.io.generator import genome_reads_fasta
     p = tmp_path / "sp.fasta"
     p.write_text(genome_reads_fasta(60, 200, genome_len=3000, seed=21))
@@ -106,15 +104,7 @@ def test_spaced_count_end_to_end(tmp_path):
     want = oracle.oracle_spaced_count(oracle.read_fasta_py(str(p)),
                                       mask, canonical=True)
     assert got.to_dict() == dict(want)
-    os.environ["KMER_TPU_STEP"] = "fused"    # mxu kernel, interpret
-    try:
-        # different batch shape => fresh trace (the env routing runs at
-        # trace time; reusing cfg would hit the XLA-path jit cache and
-        # compare it with itself)
-        got_f = count_fasta(str(p), cfg.replace(batch_reads=24))
-    finally:
-        del os.environ["KMER_TPU_STEP"]
-    assert got_f == got
+    assert count_fasta(str(p), cfg.replace(sort_group_keys=0)) == got
 
 
 def test_spaced_cli(tmp_path, capsys):
@@ -163,7 +153,7 @@ def test_spaced_mesh_streaming(tmp_path, shape):
 
 @pytest.mark.parametrize("n_data,n_seq", [(1, 1), (4, 1), (2, 2), (4, 2)])
 def test_spaced_distributed_pairs(n_data, n_seq):
-    """Spaced seeds through the fused-local pair-routing path: table
+    """Spaced seeds through the local-count pair-routing path: table
     bit-identical to the oracle across mesh shapes (incl. sequence
     sharding with the span-1 halo)."""
     from kmer_tpu.ops.encode import BASE_ORDER, encode_seq
